@@ -1,4 +1,4 @@
-"""Distributed eigensolve over all visible devices (TPU pod slice, or a
+"""Distributed eigensolve over all visible devices (several GPUs, or a
 simulated CPU mesh via XLA_FLAGS=--xla_force_host_platform_device_count=8)."""
 
 import os

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-
 from maxwell_tpu.utils.precision import fp32_true
+
 
 @fp32_true
 def solve(
@@ -33,29 +33,20 @@ def solve(
 
     solver: "lobpcg" (default; preconditioned, alpha auto-tuned from the
     analytic oracle when available), "lanczos", or "shift_invert" (needs
-    sigma). kernel: "auto" (default — the production BELLUnion Pallas
-    kernel on real TPUs at f32, XLA einsum reference elsewhere), or an
-    explicit "ref" | "pallas" | "bellpairs" | "union".
+    sigma). kernel: "auto" (default; kernels.spmm.resolve_kernel), "ref"
+    or "triton".
     distributed=True shards over all visible devices (or n_shards).
 
     refine: mixed-precision polish (solvers/refine.py). "auto" (default)
     kicks in when dtype is f32 and tol is below the fp32 floor (1e-6):
     the device solves to 1e-5, then f64 Rayleigh-quotient-shifted
-    inverse-iteration sweeps on the host reach tol. TPU has no fast f64 — this is how the 1e-8
-    residual contract is met at TPU speed (SURVEY.md §6).
+    inverse-iteration sweeps on the host reach tol (SURVEY.md §6). With
+    dtype=f64 (the default) the device solves to tol in native f64.
     """
     import jax
 
     if dtype == jnp.float64:
         jax.config.update("jax_enable_x64", True)
-    if kernel == "auto":
-        # PRODUCTION path on real TPUs: the BELLUnion Pallas kernel (f32;
-        # round-2 VERDICT item 4); XLA einsum reference elsewhere
-        kernel = (
-            "union"
-            if jax.devices()[0].platform == "tpu" and dtype == jnp.float32
-            else "ref"
-        )
 
     want_refine = refine is True or (
         refine == "auto" and dtype == jnp.float32 and tol < 1e-6
@@ -71,8 +62,6 @@ def solve(
             alpha = 1.0
 
     if distributed:
-        import jax
-
         from maxwell_tpu.dist import make_mesh, partition_problem
         from maxwell_tpu.solvers.dist_solve import lobpcg_dist
 

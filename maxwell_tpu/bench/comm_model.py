@@ -1,8 +1,7 @@
-"""Analytic ICI/DCN communication model for the distributed LOBPCG
-iteration (round-3 VERDICT weak item 6: the >=70% multi-host weak-scaling
-gate is unprovable on this one-chip environment — this model PREDICTS it
-from measured single-chip compute plus parameterized link bandwidths, and
-names the dominant comm term so a real-pod run knows where to look).
+"""Analytic communication model for the distributed LOBPCG iteration
+(round-3 VERDICT weak item 6): predicts weak-scaling efficiency from a
+measured single-device iteration time plus MEASURED link bandwidths, and
+names the dominant comm term so a multi-device run knows where to look.
 
 Per-iteration communication of the slab-sharded stencil LOBPCG
 (solvers/dist_solve + dist/stencil_dist + solvers/spectral):
@@ -17,11 +16,12 @@ Per-iteration communication of the slab-sharded stencil LOBPCG
    FULL mode-coefficient volume, ~3 * n_modes * m floats with n_modes ~
    nx*ny*nz per component lattice (dist/stencil_dist mode grids) — by far
    the largest comm term. Ring allreduce cost: 2*(D-1)/D * V / BW over
-   the SLOWEST link in the ring (DCN once the mesh spans hosts).
+   the SLOWEST link in the ring (the host-crossing link once the mesh
+   spans hosts).
 
-Bandwidth defaults are order-of-magnitude public numbers for v5e-class
-parts (ICI ~4.5e10 B/s per link direction, DCN ~2.5e10 B/s per host
-pair); pass measured values when available.
+The model has no built-in link rates: the caller passes the bandwidths
+measured on the machine it models (bw_link between devices of one host,
+bw_host between hosts), in bytes per second per direction.
 """
 
 from __future__ import annotations
@@ -85,9 +85,9 @@ class CommModel:
     nz: int
     cells: int  # x-cells per shard (weak scaling keeps this constant)
     m: int  # LOBPCG block width
-    t_compute_iter_s: float  # measured single-chip per-iteration compute
-    bw_ici: float = 4.5e10  # B/s per neighbor link direction
-    bw_dcn: float = 2.5e10  # B/s per host-crossing link
+    t_compute_iter_s: float  # measured single-device per-iteration compute
+    bw_link: float  # measured B/s per neighbor link direction, one host
+    bw_host: float  # measured B/s per host-crossing link direction
     overlap_halo: float = 1.0  # fraction of halo time hidden (measured
     # structure: interior apply has no dataflow edge to the exchange)
 
@@ -131,7 +131,7 @@ class CommModel:
                 "compute": self.t_compute_iter_s, "halo": 0.0,
                 "allreduce": 0.0, "total": self.t_compute_iter_s,
             }
-        link = self.bw_dcn if hosts > 1 else self.bw_ici
+        link = self.bw_host if hosts > 1 else self.bw_link
         t_halo = (
             self.halo_bytes() / link * (1.0 - self.overlap_halo)
             + self.projector_permute_bytes() / link
@@ -151,7 +151,7 @@ class CommModel:
         return self.t_compute_iter_s / self.t_iter(D, hosts)["total"]
 
     def report(self, sizes=(1, 2, 4, 8), hosts_of=None) -> list[dict]:
-        """Rows for BASELINE.md: predicted efficiency + dominant term."""
+        """Per mesh size: predicted efficiency + dominant comm term."""
         rows = []
         for D in sizes:
             h = hosts_of(D) if hosts_of else (1 if D <= 4 else D // 4)

@@ -5,10 +5,9 @@ LOBPCG solve per mesh size plus the sharded KM apply rate (SURVEY.md §6:
 BASELINE.json config 5 gate: >=70% weak scaling).
 
 Weak mode grows the x-extent with the device count (constant cells per
-slab); strong mode fixes the global grid. On real TPU hardware the
-efficiency numbers are the deliverable; on the CPU-simulated mesh (all
-"devices" share host cores) they are structural smoke numbers and are
-labeled simulated=true.
+slab); strong mode fixes the global grid. On GPUs the efficiency numbers
+are the deliverable; on the CPU-simulated mesh (all "devices" share host
+cores) they are structural smoke numbers and are labeled simulated=true.
 
 Usage: python -m maxwell_tpu.bench.scaling [--mode weak|strong]
                                            [--cells N] [--ny N] [--nz N]
@@ -105,23 +104,6 @@ def run(mode: str = "weak", cells: int = 8, ny: int = 16, nz: int = 16,
             "hosts": topo["hosts"],
         })
         print(json.dumps(rows[-1]), flush=True)
-    # analytic ICI/DCN prediction for the >=70% multi-host gate
-    # (bench/comm_model.py): seeded with the MEASURED per-iteration solve
-    # time of the smallest mesh (compute-dominated there)
-    predicted = None
-    if mode == "weak" and rows:
-        from maxwell_tpu.bench.comm_model import CommModel
-
-        r0 = rows[0]
-        t_iter = r0["t_solve_s"] / max(r0["solve_iters"], 1)
-        cm = CommModel(
-            ny=ny, nz=nz, cells=cells, m=nev + max(4, nev // 2),
-            t_compute_iter_s=t_iter,
-        )
-        sizes_pred = sorted(
-            {r["devices"] for r in rows} | {8, 16, 32, 64}
-        )
-        predicted = cm.report(sizes=tuple(sizes_pred))
     report = {
         "mode": mode,
         "simulated": simulated,
@@ -129,7 +111,6 @@ def run(mode: str = "weak", cells: int = 8, ny: int = 16, nz: int = 16,
         "workload": "DistStencilPencil3D LOBPCG (slab-sharded, "
                     "assembly-free taps)",
         "rows": rows,
-        "predicted_weak_scaling": predicted,
     }
     print(json.dumps(report, indent=1))
     with open("scaling_results.json", "w") as f:
@@ -145,10 +126,8 @@ if __name__ == "__main__":
     ap.add_argument("--nz", type=int, default=16)
     ap.add_argument("--maxiter", type=int, default=40)
     ap.add_argument(
-        "--platform", default=None,
-        help="force a jax platform (e.g. 'cpu' for the simulated mesh; "
-        "the env var is too late — jax is imported at interpreter "
-        "startup here)",
+        "--platform", default=None, choices=("cpu", "gpu"),
+        help="force the JAX backend ('cpu' for the simulated mesh)",
     )
     a = ap.parse_args()
     if a.platform:

@@ -1,17 +1,17 @@
 """Mesh construction helpers (SURVEY.md §2 C15: the partitioner is a Mesh +
 PartitionSpec, not a code path; §5.8 comm backend).
 
-Topology model (round-2 VERDICT missing-item 5): a multi-host pod slice
-has two link classes — ICI within a slice (fast) and DCN across slices /
-hosts (slow). The row-sharded solvers exchange halos only between
-ADJACENT shards, so the whole hierarchy reduces to device ORDER: with
-hosts-major ordering, at most (n_hosts - 1) of the (D - 1) neighbor links
-cross DCN and every other halo rides ICI. `make_mesh` therefore orders
-devices (process_index, id) — hosts-major — and `mesh_topology_report`
-states exactly which links cross hosts, so real pods need zero code
-change and the comm cost is inspectable before a run (this environment
-has one host; the report is exercised structurally on the simulated
-mesh)."""
+Topology model (round-2 VERDICT missing-item 5): a multi-host cluster has
+two link classes — links between the devices of one host (fast; NVLink on
+a GPU host) and links across hosts (slow; named "dcn" in the code). The
+row-sharded solvers exchange halos only between ADJACENT shards, so the
+whole hierarchy reduces to device ORDER: with hosts-major ordering, at
+most (n_hosts - 1) of the (D - 1) neighbor links cross hosts.
+`make_mesh` therefore orders devices (process_index, id) — hosts-major —
+and `mesh_topology_report` states exactly which links cross hosts, so
+multi-host runs need zero code change and the comm cost is inspectable
+before a run (on one host every link is intra-host; the report is
+exercised structurally on the simulated mesh)."""
 
 from __future__ import annotations
 
@@ -25,11 +25,10 @@ ROW_AXIS = "rows"
 def make_mesh(n_devices: int | None = None, axis: str = ROW_AXIS) -> Mesh:
     """1-D device mesh over the block-row axis, hosts-major order.
 
-    n_devices defaults to all visible devices. On a multi-host pod slice
-    the same call spans hosts (jax.devices() is global): consecutive
-    shards land on the same host wherever possible, so neighbor halo
-    exchanges ride ICI and only the (n_hosts - 1) host-boundary links
-    cross DCN (SURVEY.md §5.8)."""
+    n_devices defaults to all visible devices. On several hosts the same
+    call spans them (jax.devices() is global): consecutive shards land on
+    the same host wherever possible, so only the (n_hosts - 1)
+    host-boundary links cross hosts (SURVEY.md §5.8)."""
     devs = sorted(
         jax.devices(), key=lambda d: (d.process_index, getattr(d, "id", 0))
     )
@@ -45,8 +44,8 @@ def mesh_topology_report(mesh: Mesh, axis: str = ROW_AXIS) -> dict:
 
     Returns {devices, hosts, neighbor_links, dcn_links, ici_links,
     dcn_link_positions}: dcn_links counts adjacent-shard pairs whose
-    devices live on different processes (those halo exchanges cross DCN);
-    everything else rides ICI."""
+    devices live on different processes (those halo exchanges cross
+    hosts); ici_links counts the intra-host rest."""
     devs = list(np.asarray(mesh.devices).reshape(-1))
     procs = [d.process_index for d in devs]
     dcn_pos = [

@@ -28,56 +28,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import scipy.sparse as sp
-
-from maxwell_tpu.sparse.bsr import BSRMatrix, bsr_matmat_ref
+from maxwell_tpu.kernels.spmm import matmat_fn, resolve_kernel
+from maxwell_tpu.sparse.bsr import BSRMatrix
 from maxwell_tpu.solvers.cg import cg
 from maxwell_tpu.solvers.deflation import GradientProjector
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _halo_depth_csr(C, n_pad: int, L: int, b: int) -> int:
-    """Max off-shard block-column distance (block-row units) of any stored
-    nonzero — the uniform halo depth H, computed directly from CSR."""
-    C = sp.csr_matrix(C).copy()
-    C.eliminate_zeros()
-    C.resize((n_pad, n_pad))
-    if C.nnz == 0:
-        return 0
-    counts = np.diff(C.indptr)
-    brow = np.repeat(np.arange(n_pad) // b, counts)
-    bcol = C.indices // b
-    lo = (brow // L) * L
-    d = np.maximum(lo - bcol, bcol - (lo + L - 1))
-    return max(int(d.max()), 0)
-
-
-def _shard_int_bnd_csr(C, D: int, Lb: int, Hb: int, n_pad: int):
-    """Per-shard (interior, boundary) CSR pieces in the LOCAL layouts:
-    interior (Lb, Lb) over own rows/cols; boundary (Lb, 2*Hb) whose columns
-    are [left halo | right halo] — exactly the section exchange_halos
-    appends after the own rows. Ends of the chain get zero columns."""
-    C = sp.csr_matrix(C)
-    C.resize((n_pad, n_pad))
-    ints, bnds = [], []
-    for d in range(D):
-        lo, hi = d * Lb, (d + 1) * Lb
-        rows = C[lo:hi].tocsr()
-        ints.append(rows[:, lo:hi].tocsr())
-        if Hb:
-            l0, r1 = max(lo - Hb, 0), min(hi + Hb, n_pad)
-            parts = []
-            if Hb > lo - l0:
-                parts.append(sp.csr_matrix((Lb, Hb - (lo - l0))))
-            parts.append(rows[:, l0:lo])
-            parts.append(rows[:, hi:r1])
-            if Hb > r1 - hi:
-                parts.append(sp.csr_matrix((Lb, Hb - (r1 - hi))))
-            bnds.append(sp.hstack(parts).tocsr())
-    return ints, bnds
 
 
 def _after(x, dep):
@@ -87,8 +41,8 @@ def _after(x, dep):
     different orders on different devices; XLA:CPU's cross-module rendezvous
     keys collide when that happens (deadlock in the simulated mesh). Chaining
     every pair of otherwise-independent collectives through this barrier
-    keeps all devices in one deterministic collective order. On TPU the
-    barrier is harmless (XLA already sequences collectives per core).
+    keeps all devices in one deterministic collective order. On the GPU
+    the barrier only fixes an order XLA would otherwise choose itself.
     """
     x, _ = jax.lax.optimization_barrier((x, dep))
     return x
@@ -124,32 +78,11 @@ class DistPencil:
     mass_iters: int = 300
     proj_tol: float = 1e-10
     proj_iters: int = 150
-    halo_impl: str = "ppermute"  # or "rdma" (Pallas remote-DMA kernel)
-    # kernel="union" (PRODUCTION Pallas path — round-2 VERDICT item 1): the
-    # BSR leaves above are None and the operator lives in two per-shard
-    # BELLUnion layouts carrying BOTH value streams (vals = K, vals_b = M):
-    # Ui_* is the square interior part (columns = own rows), Ub_* the
-    # rectangular boundary part whose columns index the [left|right] halo
-    # section of the exchanged buffer. Chunk counts are padded to the max
-    # over shards (BELLUnion.pad_chunks) so shard_map sees uniform leaves.
-    Ui_vals: jax.Array | None = None  # (D*NCi*128, u_cl)
-    Ui_vals_b: jax.Array | None = None
-    Ui_ucols: jax.Array | None = None  # (D*NCi, u_cl//b)
-    Ui_tile: jax.Array | None = None  # (D*NCi,)
-    Ui_first: jax.Array | None = None  # (D*NCi,)
-    Ub_vals: jax.Array | None = None  # (D*NCb*128, ub_cl)
-    Ub_vals_b: jax.Array | None = None
-    Ub_ucols: jax.Array | None = None
-    Ub_tile: jax.Array | None = None
-    Ub_first: jax.Array | None = None
-    u_cl: int = 512  # interior chunk lanes
-    ub_cl: int = 512  # boundary chunk lanes
-    u_pack: int = 1  # aligned-run width of the union layouts
-    ub_pack: int = 1
     # link classes of the 1-D halo topology (round-3 VERDICT item 8):
-    # positions p where the (p, p+1) neighbor link crosses hosts (DCN).
+    # positions p where the (p, p+1) neighbor link crosses hosts ("dcn").
     # The halo schedule issues those permutes FIRST so their larger
-    # latency hides under both the ICI permutes and the interior SpMM.
+    # latency hides under both the intra-host permutes and the interior
+    # SpMM.
     # Derived from dist.mesh.mesh_topology_report (or injected
     # synthetically in tests).
     dcn_links: tuple = ()
@@ -158,13 +91,10 @@ class DistPencil:
         "K_blocks", "K_cols", "K_blocks_bnd", "K_cols_bnd",
         "M_blocks", "M_cols", "M_blocks_bnd", "M_cols_bnd",
         "head", "tail", "weight",
-        "Ui_vals", "Ui_vals_b", "Ui_ucols", "Ui_tile", "Ui_first",
-        "Ub_vals", "Ub_vals_b", "Ub_ucols", "Ub_tile", "Ub_first",
     )
     _AUX_FIELDS = (
         "D", "L", "H", "b", "n_nodes", "n", "axis", "kernel",
-        "mass_tol", "mass_iters", "proj_tol", "proj_iters", "halo_impl",
-        "u_cl", "ub_cl", "u_pack", "ub_pack", "dcn_links",
+        "mass_tol", "mass_iters", "proj_tol", "proj_iters", "dcn_links",
     )
 
     def tree_flatten(self):
@@ -233,9 +163,7 @@ class DistPencil:
 
     @property
     def dtype(self):
-        if self.K_blocks is not None:
-            return self.K_blocks.dtype
-        return self.Ui_vals.dtype
+        return self.K_blocks.dtype
 
     # --- reductions --------------------------------------------------------
     def weigh(self, x):
@@ -260,8 +188,8 @@ class DistPencil:
     def exchange_halos(self, X: jax.Array) -> jax.Array:
         """X (n_local, m) -> halo-extended buffer ((L+2H+1)*b, m).
 
-        Two neighbor ppermutes over ICI; devices at the chain ends receive
-        zeros (banded matrices never reference past the ends)."""
+        Two neighbor ppermutes; devices at the chain ends receive zeros
+        (banded matrices never reference past the ends)."""
         vec = X.ndim == 1
         Xl = X[:, None] if vec else X
         Hb = self.H * self.b
@@ -271,20 +199,10 @@ class DistPencil:
         if Hb == 0:
             out = jnp.concatenate([Xl, zero], axis=0)
         elif self.H <= self.L:
-            if self.halo_impl == "rdma":
-                # explicit Pallas remote-DMA transport (SURVEY C8 #6);
-                # interpret-mode on the CPU-simulated mesh
-                from maxwell_tpu.kernels.halo_rdma import exchange_halos_rdma
-
-                left, right = exchange_halos_rdma(
-                    Xl, Hb, self.axis, self.D,
-                    interpret=jax.default_backend() == "cpu",
-                )
-                out = jnp.concatenate([Xl, left, right, zero], axis=0)
-            elif self.dcn_links:
-                # DCN-aware schedule (round-3 VERDICT item 8): links that
+            if self.dcn_links:
+                # host-aware schedule (round-3 VERDICT item 8): links that
                 # cross hosts get their permutes issued FIRST, so the slow
-                # DCN transfers overlap both the ICI permutes and the
+                # transfers overlap both the intra-host permutes and the
                 # interior SpMM (_local_mm has no dataflow dependence on
                 # any of these). Disjoint target sets -> merging by
                 # addition is exact (non-targets receive zeros).
@@ -362,11 +280,7 @@ class DistPencil:
     # --- operator applies --------------------------------------------------
     def _mm(self, blocks, cols, X):
         A = BSRMatrix(blocks=blocks, cols=cols, n=self.n_local)
-        if self.kernel == "pallas":
-            from maxwell_tpu.kernels.spmm import bsr_matmat_pallas
-
-            return bsr_matmat_pallas(A, X)
-        return bsr_matmat_ref(A, X)
+        return matmat_fn(self.kernel)(A, X)
 
     def _local_mm(self, blocks_int, cols_int, blocks_bnd, cols_bnd, X):
         """Overlapped apply (SURVEY.md §3.5): the interior product reads only
@@ -382,108 +296,19 @@ class DistPencil:
         Y = Y + self._mm(blocks_bnd, cols_bnd, Xf)
         return Y[:, 0] if vec else Y
 
-    # --- BELLUnion production path (round-2 VERDICT item 1) -----------------
-    def _union_layout(self, boundary: bool):
-        """Reassemble the local BELLUnion view from the sharded leaves."""
-        from maxwell_tpu.sparse.bellunion import BELLUnion
-
-        Lb = self.n_local
-        if boundary:
-            return BELLUnion(
-                vals=self.Ub_vals, ucols=self.Ub_ucols, tile_of=self.Ub_tile,
-                first=self.Ub_first, vals_b=self.Ub_vals_b,
-                n=Lb, n_tiles=Lb // 128, b=self.b, cl=self.ub_cl,
-                n_cols=2 * self.H * self.b, pack=self.ub_pack,
-            )
-        return BELLUnion(
-            vals=self.Ui_vals, ucols=self.Ui_ucols, tile_of=self.Ui_tile,
-            first=self.Ui_first, vals_b=self.Ui_vals_b,
-            n=Lb, n_tiles=Lb // 128, b=self.b, cl=self.u_cl, n_cols=Lb,
-            pack=self.u_pack,
-        )
-
-    def _union_local_mm(self, X, streams):
-        """Per-shard union apply, same overlap structure as _local_mm: the
-        interior dot has no dataflow edge to the halo collectives; the
-        boundary dot gathers only the (2H*b, m) halo section — one exchange
-        serves BOTH value streams (K and M share the union layout), halving
-        KM_mm's halo traffic vs the BSR path's two exchanges.
-
-        halo_impl="rdma_overlap": interior dot and halo remote-DMAs run in
-        ONE fused Pallas kernel (DMAs start at chunk 0, awaited at the last
-        chunk) — overlap enforced in-kernel, not left to the XLA scheduler
-        (round-2 VERDICT item 7)."""
-        from maxwell_tpu.kernels.spmm import bellunion_matmat_pallas
-
-        interp = jax.default_backend() == "cpu"
-        vec = X.ndim == 1
-        Xl = X[:, None] if vec else X
-        Ai = self._union_layout(boundary=False)
-        Hb = self.H * self.b
-        overlap = (
-            self.halo_impl == "rdma_overlap"
-            and self.Ub_vals is not None
-            and self.H <= self.L
-        )
-        if overlap:
-            from maxwell_tpu.kernels.halo_rdma import union_interior_overlap
-
-            if streams == ("b",):
-                # single-stream M apply: present the mass stream as primary
-                Ai = dataclasses.replace(Ai, vals=Ai.vals_b, vals_b=None)
-            outs = union_interior_overlap(
-                Ai, Xl, Hb, self.axis, self.D,
-                two_streams=len(streams) == 2, interpret=interp,
-            )
-            Ys, halo = list(outs[:-1]), outs[-1]
-            # ring wrap: zero the chain-end halves
-            d = jax.lax.axis_index(self.axis)
-            mleft = (d > 0).astype(Xl.dtype)
-            mright = (d < self.D - 1).astype(Xl.dtype)
-            rowmask = jnp.concatenate(
-                [jnp.broadcast_to(mleft, (Hb,)),
-                 jnp.broadcast_to(mright, (Hb,))]
-            )[:, None]
-            Xh = halo * rowmask
-        else:
-            Ys = [
-                bellunion_matmat_pallas(Ai, Xl, interpret=interp, stream=s)
-                for s in streams
-            ]
-            Xh = None
-        if self.Ub_vals is not None:
-            if Xh is None:
-                Xf = self.exchange_halos(Xl)
-                Lb = self.n_local
-                Xh = jax.lax.slice(Xf, (Lb, 0), (Lb + 2 * Hb, Xl.shape[1]))
-            Ab = self._union_layout(boundary=True)
-            Ys = [
-                y + bellunion_matmat_pallas(Ab, Xh, interpret=interp, stream=s)
-                for y, s in zip(Ys, streams)
-            ]
-        outs = tuple(y[:, 0] if vec else y for y in Ys)
-        return outs[0] if len(outs) == 1 else outs
-
     def K_mm(self, X):
-        if self.kernel == "union":
-            return self._union_local_mm(X, ("a",))
         return self._local_mm(
             self.K_blocks, self.K_cols, self.K_blocks_bnd, self.K_cols_bnd, X
         )
 
     def M_mm(self, X):
-        if self.kernel == "union":
-            return self._union_local_mm(X, ("b",))
         return self._local_mm(
             self.M_blocks, self.M_cols, self.M_blocks_bnd, self.M_cols_bnd, X
         )
 
     def KM_mm(self, X):
         """(K @ X, M @ X) with the two halo exchanges deterministically
-        ordered (see _after). kernel="union" shares ONE exchange between
-        the two streams."""
-        if self.kernel == "union":
-            return self._union_local_mm(X, ("a", "b"))
+        ordered (see _after)."""
         KX = self.K_mm(X)
         MX = self.M_mm(_after(X, KX))
         return KX, MX
@@ -530,11 +355,10 @@ def partition_problem(
     problem,
     n_shards: int,
     block: int | None = None,
-    kernel: str = "ref",
+    kernel: str = "auto",
     dtype=jnp.float32,
     axis: str = "rows",
     reorder: bool = True,
-    halo_impl: str = "ppermute",
     mesh=None,
     dcn_links: tuple | None = None,
 ) -> DistPencil:
@@ -558,21 +382,14 @@ def partition_problem(
             ] if p < n_shards - 1
         )
     dcn_links = tuple(dcn_links or ())
-    if block is None:
-        # layout study, round-1 log; the union kernel wants lane-aligned b=8
-        block = 8 if kernel in ("pallas", "union") else 4
+    kernel = resolve_kernel(kernel)
+    block = block or 4  # layout study, round-1 log
     perm = None
     if reorder:
         from maxwell_tpu.sparse.reorder import PermutedProblem
 
         problem = PermutedProblem(problem)
         perm = problem.perm
-    if kernel == "union":
-        dp = _partition_union(
-            problem, n_shards, block, dtype, axis, halo_impl, dcn_links
-        )
-        object.__setattr__(dp, "perm", perm)
-        return dp
     row_tile = max(128 // block, 1)
     K = BSRMatrix.from_csr(
         problem.K, block=block, dtype=dtype, row_align=n_shards * row_tile
@@ -698,108 +515,9 @@ def partition_problem(
         n=n,
         axis=axis,
         kernel=kernel,
-        halo_impl=halo_impl,
         dcn_links=dcn_links,
     )
     # host-side metadata (survives on this instance only, not through pytree
     # transforms — used by drivers to un-permute returned eigenvectors)
     object.__setattr__(dp, "perm", perm)
     return dp
-
-
-def _projector_leaves(problem, n_rows: int, dtype):
-    """Row-sharded gradient-projector data padded to n_rows."""
-    proj = GradientProjector.from_gradient(problem.G, n_rows, dtype=dtype)
-    n = problem.K.shape[0]
-    n_nodes = proj.n_nodes
-    head = np.full(n_rows, n_nodes, dtype=np.int32)
-    tail = np.full(n_rows, n_nodes, dtype=np.int32)
-    weight = np.zeros(n_rows, dtype=np.dtype(dtype))
-    head[:n] = np.asarray(proj.head)
-    tail[:n] = np.asarray(proj.tail)
-    weight[:n] = np.asarray(proj.weight)
-    return head, tail, weight, n_nodes
-
-
-def _partition_union(problem, n_shards, block, dtype, axis, halo_impl,
-                     dcn_links=()):
-    """kernel="union" partitioner (round-2 VERDICT item 1): the PRODUCTION
-    BELLUnion kernel on every shard. Per shard, the operator splits into a
-    square interior union layout (columns = own rows — overlappable with
-    the halo exchange) and a rectangular boundary union layout whose
-    columns index the [left|right] halo section, both carrying K and M as
-    two value streams on ONE union sparsity pattern. Chunk counts are
-    padded to the per-shard max so shard_map sees uniform leaves; padding
-    chunks multiply zeros into the last tile."""
-    from maxwell_tpu.sparse.bellunion import BELLUnion
-
-    if jnp.dtype(dtype) != jnp.float32:
-        raise ValueError("kernel='union' is the f32 TPU production path")
-    D, b = n_shards, block
-    Kc = sp.csr_matrix(problem.K)
-    Mc = sp.csr_matrix(problem.M)
-    n = Kc.shape[0]
-    n_pad = _round_up(n, D * 128)
-    Lb = n_pad // D
-    L = Lb // b
-    H = max(
-        _halo_depth_csr(Kc, n_pad, L, b), _halo_depth_csr(Mc, n_pad, L, b)
-    )
-    Hb = H * b
-
-    Ki, Kb = _shard_int_bnd_csr(Kc, D, Lb, Hb, n_pad)
-    Mi, Mb = _shard_int_bnd_csr(Mc, D, Lb, Hb, n_pad)
-
-    def _build(Ks, Ms, ncols, cl, pack):
-        us = [
-            BELLUnion.from_csr(
-                Ks[d], block=b, dtype=dtype, B=Ms[d], ncols=ncols,
-                chunk_lanes=cl, to_device=False, pack=pack,
-            )
-            for d in range(D)
-        ]
-        NC = _round_up(max(u.n_chunks for u in us), 8)
-        for i in range(len(us)):
-            # replace in place so each source buffer is freed (arena
-            # entry released) right after its padded copy exists — halves
-            # the peak host footprint of a D-shard build (round-3
-            # advisor finding, medium)
-            us[i] = us[i].pad_chunks(NC)
-        cat = lambda f: jnp.asarray(np.concatenate([f(u) for u in us]))
-        return (
-            cat(lambda u: u.vals),
-            cat(lambda u: u.vals_b),
-            cat(lambda u: u.ucols),
-            cat(lambda u: u.tile_of),
-            cat(lambda u: u.first),
-        )
-
-    # pack=2 @ cl=1024: the round-4 production layout (bench/exp_union2:
-    # 85% of own roofline vs 63% for cl=512/pack=1 on the 24^3 operator)
-    u_cl = min(1024, max(128, _round_up(Lb, 128)))
-    u_pack = 2 if (u_cl // b) % 2 == 0 else 1
-    Ui = _build(Ki, Mi, Lb, u_cl, u_pack)
-    ub_cl = 512
-    ub_pack = 1
-    Ub = (None,) * 5
-    if Hb:
-        ub_cl = min(1024, max(128, _round_up(2 * Hb, 128)))
-        ub_pack = 2 if (ub_cl // b) % 2 == 0 else 1
-        Ub = _build(Kb, Mb, 2 * Hb, ub_cl, ub_pack)
-
-    head, tail, weight, n_nodes = _projector_leaves(problem, n_pad, dtype)
-    return DistPencil(
-        K_blocks=None, K_cols=None, K_blocks_bnd=None, K_cols_bnd=None,
-        M_blocks=None, M_cols=None, M_blocks_bnd=None, M_cols_bnd=None,
-        head=jnp.asarray(head),
-        tail=jnp.asarray(tail),
-        weight=jnp.asarray(weight),
-        D=D, L=L, H=H, b=b, n_nodes=n_nodes, n=n, axis=axis,
-        kernel="union", halo_impl=halo_impl,
-        Ui_vals=Ui[0], Ui_vals_b=Ui[1], Ui_ucols=Ui[2], Ui_tile=Ui[3],
-        Ui_first=Ui[4],
-        Ub_vals=Ub[0], Ub_vals_b=Ub[1], Ub_ucols=Ub[2], Ub_tile=Ub[3],
-        Ub_first=Ub[4],
-        u_cl=u_cl, ub_cl=ub_cl, u_pack=u_pack, ub_pack=ub_pack,
-        dcn_links=dcn_links,
-    )

@@ -1,25 +1,32 @@
-"""Pallas blocked-ELL SpMM/SpMV kernel (SURVEY.md §2 C4/C5; BASELINE.json:
-"SpMV/SpMM (MPI rank loops -> Pallas kernels)").
+"""Blocked-ELL SpMM kernel for the GPU (Pallas through Triton), and the one
+place where the operator apply is chosen (SURVEY.md §2 C4/C5).
 
 Layout recap (maxwell_tpu/sparse/bsr.py): blocks (nbr, S, b, b), cols
 (nbr, S) int32, padding slots point at block-column 0 with zero values.
 
-Kernel strategy (v1, single chip):
-- Grid over tiles of R block-rows (R*b = 128 scalar rows per tile — one MXU
-  sublane panel). The (R, S, b, b) value tile streams HBM->VMEM through the
-  standard pallas_call pipeline (double-buffered by the compiler), which is
-  the dominant HBM traffic — exactly the stream a speed-of-light SpMV must
-  saturate.
-- X is held ENTIRELY in VMEM for the duration of the kernel (BlockSpec with
-  no blocking). The per-slot gather X[cols[r, s]] becomes R static-unrolled
-  dynamic slices from VMEM per slot — VMEM-local, off the HBM critical path.
-  Constraint: X must fit in VMEM (n_padded * m * 4 bytes <~ 12 MB); callers
-  fall back to the XLA einsum path otherwise (bsr_matmat dispatches).
-- Per slot s, the R gathered (b, m) panels contract with the (R, b, b)
-  value panel as one batched einsum -> MXU.
+The plain XLA apply (`bsr_matmat_ref`) first materialises the gathered
+panel array X[cols] of shape (nbr, S, b, m) in device memory, then
+contracts it. This kernel gathers each (b, m) panel of X straight into
+registers instead, so device memory sees the matrix values, the column
+indices, X (mostly served from L2) and Y once each.
 
-cols rides in VMEM as an (R, S) int32 tile; scalar reads from VMEM feed the
-dynamic slice starts.
+One program owns P = TR*b output rows (TR block-rows). It loads its own
+column indices (there is no scalar prefetch on the GPU), and for each slot
+s and block column j accumulates  Y[p, :] += B[r(p), s, i(p), j] *
+X[cols[r(p), s]*b + j, :]  as elementwise FMAs in the output dtype. No
+tensor-core product is involved, so f32 stays f32 (no TF32) and f64 runs
+natively. All refs are passed flat so the kernel computes its own offsets
+in int32; masks cover a partial last tile and widths m that are not powers
+of two.
+
+The kernel loses to XLA on a single vector, which is what Lanczos and
+every matvec send: at m=1 XLA's apply needs no gathered temporary (48^3
+on an H100: 0.101 ms against the kernel's 0.186 ms in f32). From m=2 on
+XLA materialises the gathered panels and the kernel wins by 5-7x (0.130
+against 0.723 ms at m=2). So the GPU apply (`bsr_matmat_gpu`) picks per
+call, from shapes known at trace time: the kernel from TRITON_MIN_WIDTH
+columns up, XLA below it and wherever the kernel cannot take the
+operands (`triton_unsupported`).
 """
 
 from __future__ import annotations
@@ -29,888 +36,142 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from maxwell_tpu.sparse.bsr import BSRMatrix, bsr_matmat_ref
 
-# X larger than this falls back to the XLA einsum path / banded split.
-# LEGACY raw-bytes knob, kept as the window budget for banded builders.
-_VMEM_X_BUDGET = 12 * 1024 * 1024
-
-# The REAL resident-X constraint (round 5, measured from a compile
-# failure at 48^3): VMEM stores f32 arrays in (8, 128) tiles, so an
-# (n, m) X with m <= 128 occupies n*128*4 bytes REGARDLESS of m — the
-# old raw-bytes check both rejected workable widths (m=96 at 24^3,
-# 21 MB padded) and admitted impossible ones (m=8 at 48^3: 10 MB raw
-# but 163 MB padded vs the chip's 128 MB VMEM). Budget leaves room for
-# the streamed value tiles (double-buffered) and output blocks.
-_VMEM_X_LANE_BUDGET = 96 * 1024 * 1024
+KERNELS = ("ref", "triton")
+# narrowest X the GPU apply sends to the Triton kernel (see module doc)
+TRITON_MIN_WIDTH = 2
+_INT32_LIMIT = 2**31
 
 
-def x_resident_vmem_bytes(rows: int, m: int) -> int:
-    """VMEM bytes of an (rows, m) f32 array resident in a kernel."""
-    lanes = max(128, ((m + 127) // 128) * 128)
-    return rows * lanes * 4
+def resolve_kernel(kernel: str = "auto", platform: str | None = None) -> str:
+    """The operator apply for `kernel` on `platform` (default: the first
+    JAX device's). "auto" is the GPU apply ("triton": the Triton kernel or
+    XLA, per call, see `bsr_matmat_gpu`) on a GPU and the XLA reference
+    elsewhere; "triton" anywhere but a GPU is an error (it has no CPU
+    lowering; tests call the kernel in interpret mode directly)."""
+    if platform is None:
+        platform = jax.devices()[0].platform
+    if kernel == "auto":
+        return "triton" if platform == "gpu" else "ref"
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; expected auto|ref|triton")
+    if kernel == "triton" and platform != "gpu":
+        raise ValueError(f"kernel='triton' needs a GPU, not {platform!r}")
+    return kernel
 
 
-def x_fits_vmem(rows: int, m: int) -> bool:
-    return x_resident_vmem_bytes(rows, m) <= _VMEM_X_LANE_BUDGET
+def matmat_fn(kernel: str):
+    """Y = A @ X implementation for a resolved kernel name."""
+    if kernel == "ref":
+        return bsr_matmat_ref
+    if kernel == "triton":
+        return bsr_matmat_gpu
+    raise ValueError(f"unresolved kernel {kernel!r}")
 
 
-def _spmm_kernel(cols_ref, blocks_ref, x_ref, o_ref, *, R, S, b, m):
-    acc = jnp.zeros((R, b, m), jnp.float32)
-    for s in range(S):
-        panels = []
-        for r in range(R):
-            c = cols_ref[r, s]
-            panels.append(x_ref[pl.ds(c * b, b), :])
-        xg = jnp.stack(panels)  # (R, b, m)
-        acc = acc + jnp.einsum(
-            "rij,rjm->rim",
-            blocks_ref[:, s],
-            xg,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-    o_ref[:] = acc.reshape(R * b, m).astype(o_ref.dtype)
+def triton_unsupported(A: BSRMatrix, x_rows: int, m: int) -> str | None:
+    """Why the Triton kernel cannot compute A @ X for an (x_rows, m) X, or
+    None if it can: it needs a power-of-two block, and its int32 flat
+    offsets into the blocks, X and the tile-padded Y must stay below
+    2^31."""
+    b = A.b
+    if b & (b - 1):
+        return f"needs a power-of-two block, got {b}"
+    TR = _tile_rows(b, pl.next_power_of_2(m)) // b
+    y_rows = pl.cdiv(A.n_brows, TR) * TR * b
+    largest = max(A.blocks.size, x_rows * m, y_rows * m)
+    if largest >= _INT32_LIMIT:
+        return f"a flat offset reaches {largest} >= 2^31 (int32 offsets)"
+    return None
+
+
+def choose_apply(A: BSRMatrix, X) -> str:
+    """"triton" or "ref": the apply the GPU path uses for these shapes."""
+    x_rows, m = X.shape
+    if m < TRITON_MIN_WIDTH or triton_unsupported(A, x_rows, m):
+        return "ref"
+    return "triton"
+
+
+def bsr_matmat_gpu(A: BSRMatrix, X: jax.Array) -> jax.Array:
+    """Y = A @ X on the GPU: the Triton kernel or the XLA reference, as
+    `choose_apply` says for these shapes."""
+    if choose_apply(A, X) == "triton":
+        return bsr_matmat_triton(A, X)
+    return bsr_matmat_ref(A, X)
+
+
+def _bsr_kernel(cols_ref, blocks_ref, x_ref, y_ref, *, nbr, TR, S, b, m, mp):
+    P = TR * b
+    i = pl.program_id(0)
+    p = jnp.arange(P, dtype=jnp.int32)
+    r = i * TR + p // b  # block row of each output row
+    ii = p % b  # row inside the block
+    col = jnp.arange(mp, dtype=jnp.int32)
+    rmask = r < nbr if nbr % TR else None
+    cmask = col < m if mp != m else None
+    xmask = cmask[None, :] if cmask is not None else None
+    masked = {} if xmask is None else {"mask": xmask, "other": 0}
+    if rmask is not None:
+        r = jnp.where(rmask, r, 0)
+    dtype = y_ref.dtype
+
+    def slot(s, acc):
+        c = plgpu.load(cols_ref.at[r * S + s])
+        base = (r * S + s) * (b * b) + ii * b
+        for j in range(b):
+            a = plgpu.load(blocks_ref.at[base + j]).astype(dtype)
+            rows = c * b + j
+            xg = plgpu.load(
+                x_ref.at[rows[:, None] * m + col[None, :]], **masked
+            ).astype(dtype)
+            acc = acc + a[:, None] * xg
+        return acc
+
+    acc = jax.lax.fori_loop(
+        jnp.int32(0), jnp.int32(S), slot, jnp.zeros((P, mp), dtype)
+    )
+    out = (i * P + p)[:, None] * m + col[None, :]
+    mask = xmask
+    if rmask is not None:
+        mask = rmask[:, None] if mask is None else rmask[:, None] & mask
+    plgpu.store(y_ref.at[out], acc, mask=mask)
+
+
+def _tile_rows(b: int, mp: int) -> int:
+    """Output rows per program: about 4k accumulator entries, so one
+    program keeps its (P, mp) sum in the registers of 4 warps."""
+    return min(max(4096 // mp, 64, b), 512)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def bsr_matmat_pallas(
+def bsr_matmat_triton(
     A: BSRMatrix, X: jax.Array, interpret: bool = False
 ) -> jax.Array:
-    """Y = A @ X via the Pallas kernel. X: (n_padded, m), f32.
-
-    Falls back to the einsum path when X exceeds the VMEM budget or dtypes
-    are not f32 (f64 runs use the reference path; TPU is f32-first).
-    """
-    n_pad, m = A.n_padded, X.shape[1]
-    if (
-        X.dtype != jnp.float32
-        or A.blocks.dtype != jnp.float32
-        or X.shape[0] * m * 4 > _VMEM_X_BUDGET
-    ):
-        return bsr_matmat_ref(A, X)
-
-    b, S, nbr = A.b, A.slots, A.n_brows
-    R = max(128 // b, 1)
-    # pad block-rows up to a multiple of R (host-side constructors already
-    # align n_brows; this is a safety net for odd sizes)
-    if nbr % R != 0:
-        return bsr_matmat_ref(A, X)
-    n_tiles = nbr // R
-
-    kernel = functools.partial(_spmm_kernel, R=R, S=S, b=b, m=m)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(
-                (R, S), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),  # cols tile
-            pl.BlockSpec(
-                (R, S, b, b), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),  # value tile
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # full X resident in VMEM
-        ],
-        out_specs=pl.BlockSpec(
-            (R * b, m), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-        interpret=interpret,
-    )(A.cols, A.blocks, X)
-
-
-def _spmm_windowed_kernel(
-    wstart_ref, cols_ref, blocks_ref, xw0_ref, xw1_ref, o_ref, *, R, S, b, m, Wu
-):
-    # the two window panels cover rows [a*Wu*b, (a+2)*Wu*b) of X; cols_ref
-    # holds block-columns relative to a*Wu
-    xwin = jnp.concatenate([xw0_ref[:], xw1_ref[:]], axis=0)  # (2*Wu*b, m)
-    acc = jnp.zeros((R, b, m), jnp.float32)
-    for s in range(S):
-        panels = []
-        for r in range(R):
-            c = cols_ref[r, s]
-            panels.append(
-                jax.lax.dynamic_slice(
-                    xwin, (c * jnp.int32(b), jnp.int32(0)), (b, m)
-                )
-            )
-        xg = jnp.stack(panels)
-        acc = acc + jnp.einsum(
-            "rij,rjm->rim",
-            blocks_ref[:, s],
-            xg,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-    o_ref[:] = acc.reshape(R * b, m).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def bsr_matmat_pallas_windowed(
-    A: BSRMatrix, X: jax.Array, interpret: bool = False
-) -> jax.Array:
-    """Y = A @ X streaming X through per-tile aligned windows — no
-    X-in-VMEM limit. Requires window metadata (BSRMatrix.from_csr computes
-    it) and a bandwidth-reduced ordering for narrow windows.
-
-    The window fetch rides the NORMAL BlockSpec pipeline: two adjacent
-    (Wu*b, m) panels of X per tile, whose block indices come from the
-    scalar-prefetched win_start array — so Pallas double-buffers X panels,
-    cols and value tiles alike.
-    """
-    if A.win_start is None:
-        return bsr_matmat_ref(A, X)
-    n_pad, m = A.n_padded, X.shape[1]
-    b, S, nbr, Wu = A.b, A.slots, A.n_brows, A.win_unit
-    R = max(128 // b, 1)
-    if nbr % R != 0 or X.dtype != jnp.float32 or A.blocks.dtype != jnp.float32:
-        return bsr_matmat_ref(A, X)
-    n_tiles = nbr // R
-
-    # pad X up to a whole number of Wu panels, plus one spare panel so the
-    # (a+1) fetch at the right edge stays in bounds
-    x_rows = X.shape[0]
-    total = (-(-x_rows // (Wu * b)) + 1) * (Wu * b)
-    Xp = jnp.pad(X, ((0, total - x_rows), (0, 0)))
-
+    """Y = A @ X through the Triton kernel. X: (x_rows, m) with x_rows >=
+    A.n_padded (halo-extended local buffers index past A's own rows)."""
+    nbr, S, b = A.n_brows, A.slots, A.b
+    why = triton_unsupported(A, *X.shape)
+    if why:
+        raise ValueError(f"triton SpMM {why}")
+    m = X.shape[1]
+    mp = pl.next_power_of_2(m)
+    P = _tile_rows(b, mp)
+    TR = P // b
+    dtype = jnp.result_type(A.blocks.dtype, X.dtype)
     kernel = functools.partial(
-        _spmm_windowed_kernel, R=R, S=S, b=b, m=m, Wu=Wu
+        _bsr_kernel, nbr=nbr, TR=TR, S=S, b=b, m=m, mp=mp
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((R, S), lambda i, ws: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (R, S, b, b), lambda i, ws: (i, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (Wu * b, m), lambda i, ws: (ws[i], 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (Wu * b, m),
-                lambda i, ws: (ws[i] + 1, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (R * b, m), lambda i, ws: (i, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    return pl.pallas_call(
+    y = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
+        grid=(pl.cdiv(nbr, TR),),
+        out_shape=jax.ShapeDtypeStruct((nbr * b * m,), dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(A.win_start, A.cols_rel, A.blocks, Xp, Xp)
-
-
-# ---------------------------------------------------------------------------
-# Tile-union chunked kernel (round-2 PRODUCTION; sparse/bellunion.py).
-# One well-shaped (128, 128)@(128, m) HIGHEST dot per chunk — measured at
-# 70% of the HBM roofline on the chip (bench/exp_union.py u0_hi), vs <20%
-# for every per-block-row einsum formulation (exp_grid.py e5).
-# ---------------------------------------------------------------------------
-
-
-def _bellunion_kernel(
-    tile_of_ref, first_ref, ucols_ref, vals_ref, x_ref, o_ref,
-    *, b, m, CG, pack, precision="highest"
-):
-    # int literals as EXPLICIT int32 consts: with jax_enable_x64 on, a bare
-    # python literal stages a weak-int64 constant whose int64->int32
-    # convert_element_type recurses forever in the Mosaic lowering helper
-    # (observed on-chip, round-3) — x64 callers must still be able to run
-    # the f32 production kernel
-    k = pl.program_id(0)
-    k8 = k % jnp.int32(8)
-
-    # FULLY unrolled gather of one (pack*b, m) slice per ALIGNED RUN
-    # (sparse/bellunion.py pack field): measured on the 24^3 RCM operator
-    # (bench/exp_union2.py, round 4), pack=2 @ cl=1024 runs at 714 us =
-    # ~85% of its own roofline vs 754 us / 63% for the round-3
-    # scratch-buffer per-column kernel — fewer, larger sublane copies and
-    # a value concatenate instead of a VMEM scratch round-trip. A Mosaic
-    # rolled loop remains ~100 ns/iteration (exp_gather.py), so the
-    # unroll stays.
-    parts = [
-        x_ref[pl.ds(ucols_ref[k8, g * pack] * jnp.int32(b), pack * b), :]
-        for g in range(CG // pack)
-    ]
-    xg = jnp.concatenate(parts, axis=0)
-    d = jnp.dot(
-        vals_ref[:],
-        xg,
-        preferred_element_type=jnp.float32,
-        precision={
-            "highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT,
-        }[precision],
-    )
-
-    @pl.when(first_ref[k] == jnp.int32(1))
-    def _set():
-        o_ref[:] = d
-
-    @pl.when(first_ref[k] == jnp.int32(0))
-    def _acc():
-        o_ref[:] += d
-
-
-def _bellunion_kernel_b3(
-    tile_of_ref, first_ref, ucols_ref, vh_ref, vl_ref, x_ref, o_ref,
-    *, b, m, CG, pack
-):
-    """bf16x3 variant (round 5): the HIGHEST f32 dot costs six MXU
-    passes and dominated the kernel (measured 810 us vs 459 us for one
-    DEFAULT pass at 24^3/m=8). With the value stream pre-split into an
-    error-free bf16 (hi, lo) pair at BUILD time (same HBM bytes), three
-    DEFAULT passes hi*xh + hi*xl + lo*xh recover ~1e-6 relative accuracy
-    — below the f32 solver floors the production path feeds. Only the
-    small gathered (cl, m) X block is split in-kernel (~8k elements)."""
-    k = pl.program_id(0)
-    k8 = k % jnp.int32(8)
-    parts = [
-        x_ref[pl.ds(ucols_ref[k8, g * pack] * jnp.int32(b), pack * b), :]
-        for g in range(CG // pack)
-    ]
-    xg = jnp.concatenate(parts, axis=0)
-    xh = xg.astype(jnp.bfloat16)
-    xl = (xg - xh.astype(jnp.float32)).astype(jnp.bfloat16)
-    vh = vh_ref[:]
-    vl = vl_ref[:]
-    dot = functools.partial(
-        jnp.dot, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )
-    d = dot(vh, xh) + dot(vh, xl) + dot(vl, xh)
-
-    @pl.when(first_ref[k] == jnp.int32(1))
-    def _set():
-        o_ref[:] = d
-
-    @pl.when(first_ref[k] == jnp.int32(0))
-    def _acc():
-        o_ref[:] += d
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "stream", "precision")
-)
-def bellunion_matmat_pallas(
-    A, X: jax.Array, interpret: bool = False, stream: str = "a",
-    precision: str = "highest",
-):
-    """Y = A @ X for a BELLUnion matrix; X (n_padded, m) f32 resident in
-    VMEM. Grid over the ragged flat chunk list: stored bytes == streamed
-    bytes (no dead chunks), one MXU-shaped dot per chunk, outputs revisited
-    consecutively per tile so Pallas holds them in VMEM until the tile
-    changes. stream="b" applies the second value stream."""
-    n_pad, m = A.n_padded, X.shape[1]
-    b, cl = A.b, A.cl
-    CG = cl // b
-    vals = A.vals if stream == "a" else A.vals_b
-    if vals is None:
-        raise ValueError(f"value stream {stream!r} not present")
-    if X.dtype != jnp.float32 or not x_fits_vmem(X.shape[0], m):
-        raise ValueError("bellunion kernel needs f32 X within VMEM budget")
-    Xp = X
-    need = A.n_cols_padded  # == n_padded for square layouts
-    if X.shape[0] < need:
-        Xp = jnp.pad(X, ((0, need - X.shape[0]), (0, 0)))
-
-    if precision == "b3":
-        vh = A.vals_h if stream == "a" else A.vals_b_h
-        vl = A.vals_l if stream == "a" else A.vals_b_l
-        if vh is None:
-            raise ValueError(
-                "precision='b3' needs the bf16 split streams — build "
-                "with BELLUnion.bf16x3()"
-            )
-        kernel3 = functools.partial(
-            _bellunion_kernel_b3, b=b, m=m, CG=CG, pack=A.pack
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(A.n_chunks,),
-            in_specs=[
-                pl.BlockSpec(
-                    (8, CG),
-                    lambda k, tof, fst: (k // 8, 0),
-                    memory_space=pltpu.SMEM,
-                ),
-                pl.BlockSpec(
-                    (128, cl), lambda k, tof, fst: (k, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec(
-                    (128, cl), lambda k, tof, fst: (k, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (128, m), lambda k, tof, fst: (tof[k], 0),
-                memory_space=pltpu.VMEM,
-            ),
-        )
-        return pl.pallas_call(
-            kernel3,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-            interpret=interpret,
-        )(A.tile_of, A.first, A.ucols, vh, vl, Xp)
-
-    kernel = functools.partial(
-        _bellunion_kernel, b=b, m=m, CG=CG, pack=A.pack,
-        precision=precision,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # tile_of, first
-        grid=(A.n_chunks,),
-        in_specs=[
-            pl.BlockSpec(
-                (8, CG),
-                lambda k, tof, fst: (k // 8, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            pl.BlockSpec(
-                (128, cl), lambda k, tof, fst: (k, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # full X resident
-        ],
-        out_specs=pl.BlockSpec(
-            (128, m), lambda k, tof, fst: (tof[k], 0),
-            memory_space=pltpu.VMEM,
-        ),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-        interpret=interpret,
-    )(A.tile_of, A.first, A.ucols, vals, Xp)
-
-
-def _bellunion_km_kernel(
-    tile_of_ref, first_ref, ucols_ref, vk_ref, vm_ref, x_ref, ok_ref,
-    om_ref, *, b, m, CG, pack
-):
-    k = pl.program_id(0)
-    k8 = k % jnp.int32(8)
-    parts = [
-        x_ref[pl.ds(ucols_ref[k8, g * pack] * jnp.int32(b), pack * b), :]
-        for g in range(CG // pack)
-    ]
-    xg = jnp.concatenate(parts, axis=0)
-    dk = jnp.dot(
-        vk_ref[:], xg, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    dm = jnp.dot(
-        vm_ref[:], xg, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-    @pl.when(first_ref[k] == jnp.int32(1))
-    def _set():
-        ok_ref[:] = dk
-        om_ref[:] = dm
-
-    @pl.when(first_ref[k] == jnp.int32(0))
-    def _acc():
-        ok_ref[:] += dk
-        om_ref[:] += dm
-
-
-def _bellunion_km_kernel_b3(
-    tile_of_ref, first_ref, ucols_ref, vkh_ref, vkl_ref, vmh_ref,
-    vml_ref, x_ref, ok_ref, om_ref, *, b, m, CG, pack
-):
-    """Fused-KM bf16x3 variant (see _bellunion_kernel_b3): both value
-    streams pre-split at build time; the gathered X block is split once
-    and shared by the six DEFAULT-precision passes (3 per stream)."""
-    k = pl.program_id(0)
-    k8 = k % jnp.int32(8)
-    parts = [
-        x_ref[pl.ds(ucols_ref[k8, g * pack] * jnp.int32(b), pack * b), :]
-        for g in range(CG // pack)
-    ]
-    xg = jnp.concatenate(parts, axis=0)
-    xh = xg.astype(jnp.bfloat16)
-    xl = (xg - xh.astype(jnp.float32)).astype(jnp.bfloat16)
-    dot = functools.partial(
-        jnp.dot, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )
-    dk = dot(vkh_ref[:], xh) + dot(vkh_ref[:], xl) + dot(vkl_ref[:], xh)
-    dm = dot(vmh_ref[:], xh) + dot(vmh_ref[:], xl) + dot(vml_ref[:], xh)
-
-    @pl.when(first_ref[k] == jnp.int32(1))
-    def _set():
-        ok_ref[:] = dk
-        om_ref[:] = dm
-
-    @pl.when(first_ref[k] == jnp.int32(0))
-    def _acc():
-        ok_ref[:] += dk
-        om_ref[:] += dm
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "precision"))
-def bellunion_km_matmat_pallas(
-    A, X: jax.Array, interpret: bool = False, precision: str = "highest"
-):
-    """(K @ X, M @ X) in ONE kernel for a BELLUnion carrying both value
-    streams: the per-chunk fixed costs (SMEM column reads, the unrolled
-    X gather, the output RMW) are paid once instead of twice — they are
-    the ~15-35% of each single-stream call that is NOT value-stream
-    bytes, so the fused KM apply lands well under 2x the single apply
-    (round 4; the solver hot loop calls KM every iteration).
-    precision="b3" uses the bf16x3 split streams (see
-    _bellunion_kernel_b3) — the production f32 mode since round 5."""
-    if A.vals_b is None:
-        raise ValueError("BELLUnion built without the second value stream")
-    n_pad, m = A.n_padded, X.shape[1]
-    b, cl = A.b, A.cl
-    CG = cl // b
-    if X.dtype != jnp.float32 or not x_fits_vmem(X.shape[0], m):
-        raise ValueError("bellunion km kernel needs f32 X within VMEM")
-    Xp = X
-    need = A.n_cols_padded
-    if X.shape[0] < need:
-        Xp = jnp.pad(X, ((0, need - X.shape[0]), (0, 0)))
-
-    if precision == "b3":
-        if A.vals_h is None or A.vals_b_h is None:
-            raise ValueError(
-                "precision='b3' needs BELLUnion.bf16x3() split streams"
-            )
-        kernel3 = functools.partial(
-            _bellunion_km_kernel_b3, b=b, m=m, CG=CG, pack=A.pack
-        )
-        val_spec3 = pl.BlockSpec(
-            (128, cl), lambda k, tof, fst: (k, 0),
-            memory_space=pltpu.VMEM,
-        )
-        out_spec3 = pl.BlockSpec(
-            (128, m), lambda k, tof, fst: (tof[k], 0),
-            memory_space=pltpu.VMEM,
-        )
-        grid_spec3 = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(A.n_chunks,),
-            in_specs=[
-                pl.BlockSpec(
-                    (8, CG), lambda k, tof, fst: (k // 8, 0),
-                    memory_space=pltpu.SMEM,
-                ),
-                val_spec3, val_spec3, val_spec3, val_spec3,
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=(out_spec3, out_spec3),
-        )
-        return pl.pallas_call(
-            kernel3,
-            grid_spec=grid_spec3,
-            out_shape=(
-                jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-                jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-            ),
-            interpret=interpret,
-        )(
-            A.tile_of, A.first, A.ucols, A.vals_h, A.vals_l,
-            A.vals_b_h, A.vals_b_l, Xp,
-        )
-
-    kernel = functools.partial(
-        _bellunion_km_kernel, b=b, m=m, CG=CG, pack=A.pack
-    )
-    val_spec = pl.BlockSpec(
-        (128, cl), lambda k, tof, fst: (k, 0), memory_space=pltpu.VMEM
-    )
-    out_spec = pl.BlockSpec(
-        (128, m), lambda k, tof, fst: (tof[k], 0), memory_space=pltpu.VMEM
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(A.n_chunks,),
-        in_specs=[
-            pl.BlockSpec(
-                (8, CG), lambda k, tof, fst: (k // 8, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            val_spec,
-            val_spec,
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(out_spec, out_spec),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-        ),
-        interpret=interpret,
-    )(A.tile_of, A.first, A.ucols, A.vals, A.vals_b, Xp)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "stream", "precision")
-)
-def bellunion_matmat_banded(
-    AB, X: jax.Array, interpret: bool = False, stream: str = "a",
-    precision: str = "highest",
-):
-    """Y = A @ X for a BandedBELLUnion — X of ANY size (each band's kernel
-    sees only its contiguous X window). precision="b3" needs bands built
-    with split_bf16=True (BELLUnion.banded)."""
-    maxw = max(AB.col_rows)
-    Xp = jnp.pad(X, ((0, maxw), (0, 0)))
-    outs = []
-    for bp, cs, rows in zip(AB.bands, AB.col_starts, AB.col_rows):
-        xw = jax.lax.slice(Xp, (cs, 0), (cs + rows, X.shape[1]))
-        outs.append(
-            bellunion_matmat_pallas(
-                bp, xw, interpret=interpret, stream=stream,
-                precision=precision,
-            )
-        )
-    return jnp.concatenate(outs, axis=0)
-
-
-# ---------------------------------------------------------------------------
-# Paired chunked blocked-ELL kernel (superseded by BELLUnion above;
-# sparse/bellpairs.py)
-# ---------------------------------------------------------------------------
-
-
-def _gather_chunk(cols_ref, x_ref, j, *, R, Cp, b):
-    """(R, Cp*2b, m) X panel for chunk j: one (2b, m) sublane slice per pair
-    slot (measured ~1.2 ns fixed + ~1 ns/vreg each — bench/exp_gather.py)."""
-    panels = []
-    for r in range(R):
-        parts = [
-            x_ref[pl.ds(cols_ref[r, j * Cp + q] * b, 2 * b), :]
-            for q in range(Cp)
-        ]
-        panels.append(jnp.concatenate(parts, axis=0))
-    return jnp.stack(panels)
-
-
-def _bellpairs_kernel(nch_ref, cols_ref, vals_ref, x_ref, o_ref, *, R, Cp, b, m):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    @pl.when(j < nch_ref[i])
-    def _chunk():
-        xg = _gather_chunk(cols_ref, x_ref, j, R=R, Cp=Cp, b=b)
-        acc = jnp.einsum(
-            "rik,rkm->rim",
-            vals_ref[:].reshape(R, b, Cp * 2 * b),
-            xg,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        o_ref[:] += acc.reshape(R * b, m)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "stream"))
-def bellpairs_matmat_pallas(
-    A, X: jax.Array, interpret: bool = False, stream: str = "a"
-):
-    """Y = A @ X for a BELLPairs matrix; X (n_padded, m) f32, held fully in
-    VMEM. Grid (n_tiles, max_chunks): the chunk index map CLAMPS to the
-    tile's live chunk count, so dead (padding) chunks are never refetched
-    (Pallas elides repeated blocks) nor computed (pl.when). Measured design
-    rationale in sparse/bellpairs.py. stream="b" applies the second value
-    stream (the mass matrix of a fused K/M build) instead."""
-    n_pad, m = A.n_padded, X.shape[1]
-    b, Cp = A.b, A.Cp
-    R = 128 // b
-    n_tiles, max_ch = A.n_tiles, A.max_ch
-    vals = A.vals2d if stream == "a" else A.vals2d_b
-    if vals is None:
-        raise ValueError(f"value stream {stream!r} not present")
-    # one extra zero block row: pair slices read (2b, m) and a clamped
-    # singleton in the last block-col would otherwise run off the end
-    Xp = jnp.pad(X, ((0, b), (0, 0)))
-    if (
-        X.dtype != jnp.float32
-        or Xp.shape[0] * m * 4 > _VMEM_X_BUDGET
-    ):
-        raise ValueError("bellpairs kernel needs f32 X within VMEM budget")
-
-    kernel = functools.partial(_bellpairs_kernel, R=R, Cp=Cp, b=b, m=m)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # nch
-        grid=(n_tiles, max_ch),
-        in_specs=[
-            # full per-tile cols row (tiny, SMEM), fetched once per tile —
-            # a (R, Cp) sub-block would violate the TPU lowering's
-            # last-dim-divisibility rule
-            pl.BlockSpec(
-                (R, max_ch * Cp),
-                lambda i, j, nch: (i, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            pl.BlockSpec(
-                (R * b, Cp * 2 * b),
-                lambda i, j, nch: (i, jnp.minimum(j, nch[i] - 1)),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # full X resident
-        ],
-        out_specs=pl.BlockSpec(
-            (R * b, m), lambda i, j, nch: (i, 0), memory_space=pltpu.VMEM
-        ),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-        interpret=interpret,
-    )(A.nch, A.cols, vals, Xp)
-
-
-def _bellpairs_km_kernel(
-    nch_ref, cols_ref, vk_ref, vm_ref, x_ref, ok_ref, om_ref, *, R, Cp, b, m
-):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        ok_ref[:] = jnp.zeros_like(ok_ref)
-        om_ref[:] = jnp.zeros_like(om_ref)
-
-    @pl.when(j < nch_ref[i])
-    def _chunk():
-        xg = _gather_chunk(cols_ref, x_ref, j, R=R, Cp=Cp, b=b)
-        for vref, oref in ((vk_ref, ok_ref), (vm_ref, om_ref)):
-            acc = jnp.einsum(
-                "rik,rkm->rim",
-                vref[:].reshape(R, b, Cp * 2 * b),
-                xg,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            oref[:] += acc.reshape(R * b, m)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def bellpairs_km_matmat_pallas(A, X: jax.Array, interpret: bool = False):
-    """(K @ X, M @ X) in ONE kernel for a BELLPairs matrix carrying both
-    value streams (vals2d = K, vals2d_b = M on the union pattern).
-
-    The X gather is the measured bottleneck of every blocked-ELL kernel on
-    this chip (exp_gather.py: ~1 ns/vreg sublane-slice floor, lane width
-    free) — fusing the two applies halves the per-matrix gather cost, the
-    dominant term of the solver hot loop (SURVEY.md §3.3: LOBPCG needs
-    K@X and M@X of the same block every iteration)."""
-    if A.vals2d_b is None:
-        raise ValueError("BELLPairs built without the second value stream")
-    n_pad, m = A.n_padded, X.shape[1]
-    b, Cp = A.b, A.Cp
-    R = 128 // b
-    n_tiles, max_ch = A.n_tiles, A.max_ch
-    Xp = jnp.pad(X, ((0, b), (0, 0)))
-    if X.dtype != jnp.float32 or Xp.shape[0] * m * 4 > _VMEM_X_BUDGET:
-        raise ValueError("bellpairs km kernel needs f32 X within VMEM budget")
-
-    kernel = functools.partial(_bellpairs_km_kernel, R=R, Cp=Cp, b=b, m=m)
-    val_spec = pl.BlockSpec(
-        (R * b, Cp * 2 * b),
-        lambda i, j, nch: (i, jnp.minimum(j, nch[i] - 1)),
-        memory_space=pltpu.VMEM,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles, max_ch),
-        in_specs=[
-            pl.BlockSpec(
-                (R, max_ch * Cp),
-                lambda i, j, nch: (i, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            val_spec,
-            val_spec,
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (R * b, m), lambda i, j, nch: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (R * b, m), lambda i, j, nch: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-            jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-        ),
-        interpret=interpret,
-    )(A.nch, A.cols, A.vals2d, A.vals2d_b, Xp)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "stream"))
-def bellpairs_matmat_banded(
-    AB, X: jax.Array, interpret: bool = False, stream: str = "a"
-):
-    """Y = A @ X for a BandedBELLPairs — X of ANY size: each band's kernel
-    sees only its contiguous X window (fits VMEM by construction), so the
-    only extra HBM traffic is the inter-band window overlap."""
-    maxw = max(AB.col_rows)
-    Xp = jnp.pad(X, ((0, maxw), (0, 0)))
-    outs = []
-    for bp, cs, rows in zip(AB.bands, AB.col_starts, AB.col_rows):
-        xw = jax.lax.slice(Xp, (cs, 0), (cs + rows, X.shape[1]))
-        outs.append(
-            bellpairs_matmat_pallas(bp, xw, interpret=interpret, stream=stream)
-        )
-    return jnp.concatenate(outs, axis=0)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def bellpairs_km_matmat_banded(AB, X: jax.Array, interpret: bool = False):
-    """(K @ X, M @ X) for a BandedBELLPairs carrying both value streams."""
-    maxw = max(AB.col_rows)
-    Xp = jnp.pad(X, ((0, maxw), (0, 0)))
-    ok, om = [], []
-    for bp, cs, rows in zip(AB.bands, AB.col_starts, AB.col_rows):
-        xw = jax.lax.slice(Xp, (cs, 0), (cs + rows, X.shape[1]))
-        yk, ym = bellpairs_km_matmat_pallas(bp, xw, interpret=interpret)
-        ok.append(yk)
-        om.append(ym)
-    return jnp.concatenate(ok, axis=0), jnp.concatenate(om, axis=0)
-
-
-def _bellpairs_windowed_kernel(
-    nch_ref, ws_ref, cols_ref, vals_ref, xw0_ref, xw1_ref, o_ref,
-    *, R, Cp, b, m,
-):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        o_ref[:] = jnp.zeros_like(o_ref)
-
-    @pl.when(j < nch_ref[i])
-    def _chunk():
-        xwin = jnp.concatenate([xw0_ref[:], xw1_ref[:]], axis=0)
-        for r in range(R):
-            parts = [
-                jax.lax.dynamic_slice(
-                    xwin,
-                    (cols_ref[r, j * Cp + q] * jnp.int32(b), jnp.int32(0)),
-                    (2 * b, m),
-                )
-                for q in range(Cp)
-            ]
-            xg = jnp.concatenate(parts, axis=0)
-            o_ref[r * b:(r + 1) * b, :] += jnp.dot(
-                vals_ref[r * b:(r + 1) * b, :],
-                xg,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def bellpairs_matmat_pallas_windowed(A, X: jax.Array, interpret: bool = False):
-    """Windowed BELLPairs SpMM: X streamed through two per-tile aligned
-    (Wu*b, m) panels via scalar-prefetched window starts — no X-in-VMEM
-    limit (round-1 VERDICT item 2: the only path that scales past ~12 MB of
-    X). Panels are fetched once per tile (their index map is constant in
-    the chunk index, so Pallas elides the refetch across chunks)."""
-    if A.win_start is None:
-        raise ValueError("no window metadata")
-    n_pad, m = A.n_padded, X.shape[1]
-    b, Cp, Wu = A.b, A.Cp, A.win_unit
-    R = 128 // b
-    n_tiles, max_ch = A.n_tiles, A.max_ch
-
-    x_rows = X.shape[0]
-    total = (-(-(x_rows + b) // (Wu * b)) + 1) * (Wu * b)
-    Xp = jnp.pad(X, ((0, total - x_rows), (0, 0)))
-
-    kernel = functools.partial(
-        _bellpairs_windowed_kernel, R=R, Cp=Cp, b=b, m=m
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,  # nch, win_start
-        grid=(n_tiles, max_ch),
-        in_specs=[
-            pl.BlockSpec(
-                (R, max_ch * Cp),
-                lambda i, j, nch, ws: (i, 0),
-                memory_space=pltpu.SMEM,
-            ),
-            pl.BlockSpec(
-                (R * b, Cp * 2 * b),
-                lambda i, j, nch, ws: (i, jnp.minimum(j, nch[i] - 1)),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (Wu * b, m), lambda i, j, nch, ws: (ws[i], 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (Wu * b, m), lambda i, j, nch, ws: (ws[i] + 1, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (R * b, m), lambda i, j, nch, ws: (i, 0),
-            memory_space=pltpu.VMEM,
-        ),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad, m), jnp.float32),
-        interpret=interpret,
-    )(A.nch, A.win_start, A.cols_rel, A.vals2d, Xp, Xp)
-
-
-def bsr_matvec_pallas(A: BSRMatrix, x: jax.Array) -> jax.Array:
-    """y = A @ x. The vector is widened to an (n, 8) panel so the kernel's
-    lane dimension stays MXU/VPU-aligned; column 0 carries the data."""
-    X = jnp.zeros((A.n_padded, 8), jnp.float32).at[:, 0].set(x)
-    return bsr_matmat_pallas(A, X)[:, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "stream"))
-def bellunion_matvec_pallas(
-    A, x: jax.Array, interpret: bool = False, stream: str = "a",
-    precision: str = "highest",
-) -> jax.Array:
-    """y = A @ x — the SpMV entry point on the production layout (round-2
-    VERDICT item 6).
-
-    The vector widens to an 8-lane panel (column 0 live) because Mosaic
-    wants a lane-aligned minor dimension. This costs 8x the X/Y stream,
-    but SpMV traffic is DOMINATED by the value stream: on the 24^3
-    curl-curl operator the m=1 X/Y bytes are ~1.6% of the value bytes, so
-    the widening forfeits ~11% of the m=1 roofline — measured against its
-    OWN m=1 roofline in bench.py (spmv_m1)."""
-    X = jnp.zeros((A.n_cols_padded, 8), jnp.float32).at[: x.shape[0], 0].set(x)
-    return bellunion_matmat_pallas(
-        A, X, interpret=interpret, stream=stream, precision=precision
-    )[:, 0]
+        name="bsr_matmat_triton",
+    )(A.cols.reshape(-1), A.blocks.reshape(-1), X.reshape(-1))
+    return y.reshape(nbr * b, m)

@@ -9,9 +9,9 @@ columns it references), and all rows within one level solve in parallel.
 The factor is stored per-level in ELL form (rows, padded col ids, padded
 values), built once on host from a scipy CSR factor. The device solve is a
 static Python loop over levels inside jit — each level is a batched
-gather + reduction + scatter, which XLA maps onto the VPU. Matches the
-reference capability "sparse factorization + triangular solves" with a
-TPU-native execution strategy (BASELINE.json config 3).
+gather + reduction + scatter that XLA fuses. Matches the reference
+capability "sparse factorization + triangular solves" with a
+device-native execution strategy (BASELINE.json config 3).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ class LevelSchedule:
     Levels are padded to a common (Rmax, Smax) so the device solve is a
     single `lax.fori_loop` over a stacked (n_levels, Rmax, Smax) tensor —
     one compiled loop body regardless of level count (compile time O(1) in
-    n_levels; the padding waste is pure VPU throughput, which is cheap).
+    n_levels; the padding waste is elementwise throughput, which is cheap).
 
     rows: (nL, Rmax) int32 — rows solved per level; padding = n (ghost row).
     cols: (nL, Rmax, Smax) int32 — dependency columns; padding = n.

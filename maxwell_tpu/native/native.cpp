@@ -1,6 +1,6 @@
 // Native host-side runtime components (SURVEY.md §2 native checklist).
 //
-// The TPU compute path is Pallas/XLA; these are the host-side pieces that
+// The device compute path is Pallas/XLA; these are the host-side pieces that
 // the reference implements natively (C++) and that are hot on the SETUP
 // path for large problems:
 //   1. bell_from_csr   — CSR -> blocked-ELL conversion (SURVEY C3)

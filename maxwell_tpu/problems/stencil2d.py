@@ -2,11 +2,11 @@
 cavity (SURVEY.md §2 C2 "assembly-free/matrix-free apply option";
 BASELINE.json: "CSR/BSR assembly-free storage").
 
-TPU rationale: SpMV is HBM-bound (stream the matrix every apply); the
+Rationale: SpMV is memory-bound (stream the matrix every apply); the
 stencil apply stores NO matrix — edge fields live on their natural grids
 (Ex on (nx, ny+1), Ey on (nx+1, ny)), per-cell element matrices act through
-STATIC SLICES and shifted adds (pure VPU work, MXU for the multivector
-case), so throughput is compute-bound: effective nnz/s far beyond the
+STATIC SLICES and shifted adds (elementwise work that XLA fuses), so
+throughput is compute-bound: effective nnz/s far beyond the
 memory-bound roofline. This is the speed-of-light path for tensor-grid
 problems; assembled BSR remains the general path.
 
@@ -208,8 +208,8 @@ class StencilPencil2D:
         if self.proj is None:
             return Xm
         if self.fastproj is not None:
-            # grid-form G (round 4; see stencil3d._g_grid — the index
-            # gather/scatter formulation is pathological on TPU)
+            # grid-form G (round 4; see stencil3d._g_grid — static slices
+            # instead of the index gather/scatter formulation)
             vec = Xm.ndim == 1
             Xl = Xm[:, None] if vec else Xm
             rhs = self._gt_grid(self.M_mm(Xl))

@@ -4,7 +4,7 @@ config 4's operator).
 
 Edge fields on their natural grids: Ex (nx, ny+1, nz+1), Ey (nx+1, ny, nz+1),
 Ez (nx+1, ny+1, nz). One apply = 12 static slice-gathers -> a (12 x 12)
-element-matrix contraction batched over all cells (MXU) -> 12 slice
+element-matrix contraction batched over all cells (one matrix product) -> 12 slice
 scatter-adds. No matrix in memory: HBM traffic is just the field (re)reads,
 so effective nnz/s is compute-bound, far above the SpMV roofline.
 
@@ -75,31 +75,7 @@ def _derive_taps(Ke, Me):
     return tuple(taps)
 
 
-def _derive_taps_dw(Ke64, Me64):
-    """Double-word tap coefficients from the FULL-f64 element matrices:
-    each tap coefficient c is carried as an (hi, lo) f32 pair with
-    hi + lo == c to f64 accuracy — the f32-cast taps alone would floor the
-    double-word apply at ~1e-7 relative operator error (round-3 VERDICT
-    item 1: the on-device road to 1e-8 needs the operator itself accurate
-    beyond f32). Static python floats -> pytree aux data, like `taps`."""
-    taps64 = _derive_taps(np.asarray(Ke64, np.float64),
-                          np.asarray(Me64, np.float64))
-
-    def split(c):
-        hi = np.float32(c)
-        return float(hi), float(np.float32(c - float(hi)))
-
-    out = []
-    for comp in taps64:
-        entries = []
-        for beta, d, cK, cM in comp:
-            entries.append((beta, d, split(cK), split(cM)))
-        out.append(tuple(entries))
-    return tuple(out)
-
-
-def _derive_field_taps(Ke, Me, nx, ny, nz, scaleK, scaleM, dtype=None,
-                       dw=False):
+def _derive_field_taps(Ke, Me, nx, ny, nz, scaleK, scaleM, dtype=None):
     """Position-dependent tap stencil: the fast path for LOADED cavities and
     PMC walls (round-1 VERDICT item 9).
 
@@ -116,13 +92,10 @@ def _derive_field_taps(Ke, Me, nx, ny, nz, scaleK, scaleM, dtype=None,
     component per operator (~264 B/row total) — still far below assembled
     BSR, and the apply stays gather-free static slices.
 
-    Returns (meta, Kgrids, Mgrids, Kdw, Mdw): meta = tuple over alpha of
+    Returns (meta, Kgrids, Mgrids): meta = tuple over alpha of
     tuples (beta, (dx,dy,dz), iK, iM) with iK/iM indices into the flat
     grid lists (or -1 when that operator has no such tap). Grids are
-    accumulated in f64 and cast to `dtype` (default: Ke's dtype). With
-    dw=True, Kdw/Mdw are ((hi...), (lo...)) f32 pair tuples carrying the
-    f64-accurate coefficients for the double-word apply (loaded-cavity
-    on-device 1e-8 path, round 4); else None.
+    accumulated in f64 and cast to `dtype` (default: Ke's dtype).
     """
     Ke = np.asarray(Ke, np.float64)
     Me = np.asarray(Me, np.float64)
@@ -135,13 +108,6 @@ def _derive_field_taps(Ke, Me, nx, ny, nz, scaleK, scaleM, dtype=None,
     padM = np.zeros_like(padK)
     padM[1:-1, 1:-1, 1:-1] = scaleM
     meta, Kgrids, Mgrids = [], [], []
-    Khi, Klo, Mhi, Mlo = [], [], [], []
-
-    def _dw_split(g):
-        hi = g.astype(np.float32)
-        return jnp.asarray(hi), jnp.asarray(
-            (g - hi.astype(np.float64)).astype(np.float32)
-        )
     for alpha in range(3):
         s = shapes[alpha]
         acc = {}
@@ -172,22 +138,12 @@ def _derive_field_taps(Ke, Me, nx, ny, nz, scaleK, scaleM, dtype=None,
             if hasK:
                 iK = len(Kgrids)
                 Kgrids.append(jnp.asarray(np.asarray(cK).astype(np_dt)))
-                if dw:
-                    h, l = _dw_split(np.asarray(cK, np.float64))
-                    Khi.append(h)
-                    Klo.append(l)
             if hasM:
                 iM = len(Mgrids)
                 Mgrids.append(jnp.asarray(np.asarray(cM).astype(np_dt)))
-                if dw:
-                    h, l = _dw_split(np.asarray(cM, np.float64))
-                    Mhi.append(h)
-                    Mlo.append(l)
             entries.append((beta, d, iK, iM))
         meta.append(tuple(entries))
-    Kdw = (tuple(Khi), tuple(Klo)) if dw else None
-    Mdw = (tuple(Mhi), tuple(Mlo)) if dw else None
-    return tuple(meta), tuple(Kgrids), tuple(Mgrids), Kdw, Mdw
+    return tuple(meta), tuple(Kgrids), tuple(Mgrids)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -223,24 +179,11 @@ class StencilPencil3D:
     # translation-invariant tap stencil (vacuum + PEC only; see
     # _derive_taps). Static python floats -> lives in pytree aux data.
     taps: tuple | None = None
-    # tap-apply implementation: "xla" (fused shifted slices) or
-    # "pallas"/"pallas_roll" (kernels/stencil_taps.py: fields stream
-    # HBM->VMEM once per x-block, all taps applied VMEM-resident —
-    # round-2 VERDICT item 3). build(taps_impl="auto") picks pallas on
-    # real TPUs.
-    taps_impl: str = "xla"
     # field-coefficient taps (materials / PMC; see _derive_field_taps):
     # meta is static structure (aux), the coefficient grids are traced
     ftaps_meta: tuple | None = None
     ftaps_K: tuple | None = None
     ftaps_M: tuple | None = None
-    # double-word (hi, lo f32) tap coefficients for the on-device
-    # high-precision apply (see _derive_taps_dw / KM_mm_dw)
-    taps_dw: tuple | None = None
-    # double-word FIELD-coefficient grids ((hi...), (lo...)) for loaded
-    # cavities / PMC — the dw apply generalized to eps/mu != 1 (round 4)
-    ftaps_Kdw: tuple | None = None
-    ftaps_Mdw: tuple | None = None
     # boundary condition ("pec" | "pmc"): the spectral solver's interior
     # sine/cosine tensor basis is valid for PEC only — loaded (eps/mu)
     # PEC pencils may use the VACUUM spectral solve as an approximate
@@ -250,27 +193,22 @@ class StencilPencil3D:
     def tree_flatten(self):
         return (
             self.mask, self.Ke, self.Me, self.proj, self.inv_mu, self.eps,
-            self.fastproj, self.ftaps_K, self.ftaps_M, self.ftaps_Kdw,
-            self.ftaps_Mdw,
+            self.fastproj, self.ftaps_K, self.ftaps_M,
         ), (
             self.a, self.b, self.c, self.nx, self.ny, self.nz,
             self.n, self.n_padded, self.mass_tol, self.mass_iters,
-            self.taps, self.ftaps_meta, self.taps_impl, self.taps_dw,
-            self.bc,
+            self.taps, self.ftaps_meta, self.bc,
         )
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        (
-            mask, Ke, Me, proj, inv_mu, eps, fastproj, ftaps_K, ftaps_M,
-            ftaps_Kdw, ftaps_Mdw,
-        ) = children
+        mask, Ke, Me, proj, inv_mu, eps, fastproj, ftaps_K, ftaps_M = (
+            children
+        )
         return cls(
-            mask, Ke, Me, proj, *aux[:-5], inv_mu=inv_mu, eps=eps,
-            fastproj=fastproj, taps=aux[-5], ftaps_meta=aux[-4],
-            taps_impl=aux[-3], taps_dw=aux[-2], bc=aux[-1],
-            ftaps_K=ftaps_K, ftaps_M=ftaps_M, ftaps_Kdw=ftaps_Kdw,
-            ftaps_Mdw=ftaps_Mdw,
+            mask, Ke, Me, proj, *aux[:-3], inv_mu=inv_mu, eps=eps,
+            fastproj=fastproj, taps=aux[-3], ftaps_meta=aux[-2],
+            bc=aux[-1], ftaps_K=ftaps_K, ftaps_M=ftaps_M,
         )
 
     @property
@@ -386,36 +324,15 @@ class StencilPencil3D:
     def _taps_apply(self, X, want_K, want_M):
         """Fused shifted-slice apply: no panel stack, no scatter — every tap
         is a static slice of a once-padded field, so XLA fuses each output
-        component into one VPU loop with zero intermediate HBM traffic.
+        component into one elementwise loop with zero intermediate HBM traffic.
         Returns (YK or None, YM or None)."""
         vec = X.ndim == 1
         Xl = (X[:, None] if vec else X) * self.mask[:, None]
         m = Xl.shape[1]
         grids = self._to_grids(Xl)
-        if self.taps_impl.startswith("pallas"):
-            from maxwell_tpu.kernels.stencil_taps import stencil_taps_pallas
-
-            outs = stencil_taps_pallas(
-                grids, self.taps, m, want_K=want_K, want_M=want_M,
-                pre_roll=self.taps_impl == "pallas_roll",
-                interpret=jax.default_backend() == "cpu",
-            )
-
-            def pack_p(comp):
-                out = self._from_grids(*comp, m) * self.mask[:, None]
-                return out[:, 0] if vec else out
-
-            k = 0
-            YK = YM = None
-            if want_K:
-                YK = pack_p(outs[k])
-                k += 1
-            if want_M:
-                YM = pack_p(outs[k])
-            return YK, YM
         shapes = [g.shape for g in grids]
-        # m minor would leave 128-m lanes idle; lead with m so the (large)
-        # z axis rides the lanes and tap shifts are cheap lane rotations
+        # lead with m so every tap is a shifted slice along the contiguous
+        # z axis of one (m, x, y, z) field
         P = [
             jnp.pad(
                 jnp.moveaxis(g, -1, 0), ((0, 0), (1, 1), (1, 1), (1, 1))
@@ -449,102 +366,6 @@ class StencilPencil3D:
             Ys = [jnp.moveaxis(Y, 0, -1) for Y in Ys]
             out = self._from_grids(*Ys, m) * self.mask[:, None]
             return out[:, 0] if vec else out
-
-        return (
-            pack(outK) if want_K else None,
-            pack(outM) if want_M else None,
-        )
-
-    # --- double-word tap apply (on-device 1e-8 path) ------------------------
-    def KM_mm_dw(self, Xh, Xl, want_K=True, want_M=True):
-        """(K @ X, M @ X) in DOUBLE-WORD f32 arithmetic: X carried as the
-        unevaluated pair Xh + Xl, tap coefficients as f64-accurate (hi, lo)
-        pairs, accumulation via error-free transforms (utils/twofloat) —
-        the resulting operator apply is accurate to ~1e-13 relative, the
-        foundation of the on-device RQI refinement to 1e-8 (round-3
-        VERDICT item 1). Same shifted-slice structure as _taps_apply;
-        ~17x the flops of the f32 apply, still VPU elementwise.
-
-        Broadcast discipline (see utils/twofloat caution): coefficients
-        are 0-d python floats and theta-style factors ride the leading
-        axis — only bit-exact broadcast classes appear here.
-
-        Returns ((YKh, YKl) or None, (YMh, YMl) or None).
-        """
-        from maxwell_tpu.utils import twofloat as tf
-
-        if self.taps_dw is None and self.ftaps_Kdw is None:
-            raise ValueError("KM_mm_dw needs a tap or field-tap pencil")
-        mk = self.mask[:, None]
-        Xh = Xh * mk
-        Xl = Xl * mk  # mask is 0/1: exact on both words
-        m = Xh.shape[1]
-        gh = self._to_grids(Xh)
-        gl = self._to_grids(Xl)
-        shapes = [g.shape for g in gh]
-        # m-leading layout, zero-padded by 1 on each grid axis (same
-        # rationale as _taps_apply: shifts become cheap lane moves)
-        padg = lambda g: jnp.pad(
-            jnp.moveaxis(g, -1, 0), ((0, 0), (1, 1), (1, 1), (1, 1))
-        )
-        Ph = [padg(g) for g in gh]
-        Pl = [padg(g) for g in gl]
-        outK, outM = [], []
-        for alpha in range(3):
-            s = shapes[alpha]
-            z = jnp.zeros((m,) + tuple(s[:-1]), Xh.dtype)
-            aKh, aKl, aMh, aMl = z, z, z, z
-            if self.taps_dw is not None:
-                for beta, (dx, dy, dz), (cKh, cKl), (
-                    cMh, cMl,
-                ) in self.taps_dw[alpha]:
-                    w = (
-                        slice(None),
-                        slice(1 + dx, 1 + dx + s[0]),
-                        slice(1 + dy, 1 + dy + s[1]),
-                        slice(1 + dz, 1 + dz + s[2]),
-                    )
-                    sh, sl = Ph[beta][w], Pl[beta][w]
-                    if want_K and (cKh != 0.0 or cKl != 0.0):
-                        th, tl = tf.dw_mul(sh, sl, cKh, cKl)
-                        aKh, aKl = tf.dw_add(aKh, aKl, th, tl)
-                    if want_M and (cMh != 0.0 or cMl != 0.0):
-                        th, tl = tf.dw_mul(sh, sl, cMh, cMl)
-                        aMh, aMl = tf.dw_add(aMh, aMl, th, tl)
-            else:
-                # field-coefficient dw taps (loaded cavities / PMC): the
-                # coefficient is a GRID pair, broadcast on the leading
-                # m-axis only — a bit-exact broadcast class everywhere
-                Khi, Klo = self.ftaps_Kdw
-                Mhi, Mlo = self.ftaps_Mdw
-                for beta, (dx, dy, dz), iK, iM in self.ftaps_meta[alpha]:
-                    w = (
-                        slice(None),
-                        slice(1 + dx, 1 + dx + s[0]),
-                        slice(1 + dy, 1 + dy + s[1]),
-                        slice(1 + dz, 1 + dz + s[2]),
-                    )
-                    sh, sl = Ph[beta][w], Pl[beta][w]
-                    if want_K and iK >= 0:
-                        th, tl = tf.dw_mul(
-                            sh, sl, Khi[iK][None], Klo[iK][None]
-                        )
-                        aKh, aKl = tf.dw_add(aKh, aKl, th, tl)
-                    if want_M and iM >= 0:
-                        th, tl = tf.dw_mul(
-                            sh, sl, Mhi[iM][None], Mlo[iM][None]
-                        )
-                        aMh, aMl = tf.dw_add(aMh, aMl, th, tl)
-            outK.append((aKh, aKl))
-            outM.append((aMh, aMl))
-
-        def pack(pairs):
-            Yh = [jnp.moveaxis(p[0], 0, -1) for p in pairs]
-            Yl = [jnp.moveaxis(p[1], 0, -1) for p in pairs]
-            return (
-                self._from_grids(*Yh, m) * mk,
-                self._from_grids(*Yl, m) * mk,
-            )
 
         return (
             pack(outK) if want_K else None,
@@ -634,10 +455,9 @@ class StencilPencil3D:
 
     # --- grid-form discrete gradient (round 4) -----------------------------
     # The generic GradientProjector applies G via head/tail index
-    # gather/scatter — ~50 ms per apply at 64^3 on-chip (row gathers of
-    # (n, m) with an unaligned minor dim are pathological on TPU) and the
-    # single largest cost of every LOBPCG iteration. On the tensor grid G
-    # is a finite-difference operator: pure static slices, ~1 ms.
+    # gather/scatter, which is scattered (n, m) row traffic in every
+    # LOBPCG iteration. On the tensor grid G is a finite-difference
+    # operator: pure static slices.
     def _g_grid(self, q):
         """(n_padded, m) <- G q for q ((nx-1)(ny-1)(nz-1), m) interior
         nodal values (row-major), PEC edge mask applied."""
@@ -683,7 +503,6 @@ class StencilPencil3D:
         a=1.0, b=1.0, c=1.0, nx=8, ny=8, nz=8,
         dtype=jnp.float32, block: int = 8,
         eps_r=None, mu_r=None, bc: str = "pec",
-        taps_impl: str = "auto",
     ) -> "StencilPencil3D":
         import scipy.sparse as sp
 
@@ -801,12 +620,9 @@ class StencilPencil3D:
             if (eps_r is None and mu_r is None and bc == "pec")
             else None
         )
-        # f64-accurate double-word taps for the on-device 1e-8 path
-        taps_dw = _derive_taps_dw(Ke, Me) if taps is not None else None
         # loaded cavities / PMC keep a (field-coefficient) fast path too
         # (round-1 VERDICT item 9)
         ftaps_meta = ftaps_K = ftaps_M = None
-        ftaps_Kdw = ftaps_Mdw = None
         if taps is None:
             ones = np.ones((nx, ny, nz), np.float64)
             sK = (
@@ -814,21 +630,9 @@ class StencilPencil3D:
                 else 1.0 / np.asarray(mu_r, np.float64)
             )
             sM = ones if eps_r is None else np.asarray(eps_r, np.float64)
-            (
-                ftaps_meta, ftaps_K, ftaps_M, ftaps_Kdw, ftaps_Mdw,
-            ) = _derive_field_taps(
-                Ke, Me, nx, ny, nz, sK, sM, dtype=np_dt, dw=True,
+            ftaps_meta, ftaps_K, ftaps_M = _derive_field_taps(
+                Ke, Me, nx, ny, nz, sK, sM, dtype=np_dt,
             )
-        if taps_impl == "auto":
-            # MEASURED (round 3, exp_stencil3 on the chip, 64^3 m=8): the
-            # XLA-fused tap apply (1.18 ms) beats the Pallas rolling-window
-            # kernel (3.9 ms plain / 3.86 ms pre-rolled) — Mosaic's
-            # misaligned vector loads cost ~10-15x an aligned FMA pass
-            # (~45 us per distinct shifted full-grid slice; ~99 distinct
-            # slices in the apply), and XLA's fusion generates the better
-            # shifted-window code. The kernel stays available as an
-            # explicit taps_impl for future toolchains.
-            taps_impl = "xla"
         return StencilPencil3D(
             mask=jnp.asarray(mask),
             Ke=jnp.asarray(Ke, dtype=dtype),
@@ -841,9 +645,6 @@ class StencilPencil3D:
             eps=None if eps_r is None else jnp.asarray(eps_r, dtype=dtype),
             fastproj=fastproj,
             taps=taps,
-            taps_dw=taps_dw,
             ftaps_meta=ftaps_meta, ftaps_K=ftaps_K, ftaps_M=ftaps_M,
-            ftaps_Kdw=ftaps_Kdw, ftaps_Mdw=ftaps_Mdw,
-            taps_impl=taps_impl,
             bc=bc,
         )

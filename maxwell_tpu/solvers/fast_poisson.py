@@ -10,7 +10,7 @@ with 1D hat stiffness A_d and mass M_d. Solving the generalized 1D
 eigenproblems A_d V_d = M_d V_d Lam_d (V_d^T M_d V_d = I, host-side, once)
 diagonalizes L: q = V (Lam_x (+) Lam_y (+) Lam_z)^-1 V^T r, where each V
 factor is a DENSE (n_d-1 x n_d-1) transform applied along one grid axis —
-batched matmuls that map straight onto the MXU. The solve is EXACT to
+batched dense matmuls. The solve is EXACT to
 roundoff and costs O(n * (nx+ny+nz)) instead of ~10^2 CG iterations of
 sparse applies.
 

@@ -1,11 +1,11 @@
 """Lanczos eigensolver for the generalized problem K x = lambda M x
 (SURVEY.md §2 C9, §3.2; BASELINE.json configs 1 and 3).
 
-Design (TPU-first, SURVEY.md §7.4):
+Design (accelerator-first, SURVEY.md §7.4):
 - The Krylov factorization is ONE jit-ed `lax.fori_loop` with a fixed
   iteration count and statically-shaped basis buffers; the operator apply,
   M-inner products, and full reorthogonalization (two-pass blocked
-  Gram-Schmidt, tall matmuls on the MXU) all live inside it.
+  Gram-Schmidt, tall matmuls) all live inside it.
 - The operator is abstract: `apply_op(x)` must be M-self-adjoint. For the
   direct mode it is P M^-1 K (P = gradient-nullspace projector); for
   shift-invert (config 3) it is P (K - sigma M)^-1 M, supplied by

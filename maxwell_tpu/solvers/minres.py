@@ -108,69 +108,3 @@ def minres(
     out = jax.lax.while_loop(cond, body, state)
     return out["x"]
 
-
-def pminres_block(
-    A_mv: Callable[[jax.Array], jax.Array],
-    P_mv: Callable[[jax.Array], jax.Array],
-    B: jax.Array,
-    iters: int = 40,
-) -> jax.Array:
-    """PRECONDITIONED block MINRES: solve A x_j = b_j per column with an
-    SPD preconditioner P ~ A^-1-ish (Elman-Silvester-Wathen recurrence,
-    per-column scalars vectorized over the block; fixed iteration count —
-    jit-friendly, no data-dependent control flow).
-
-    Built for the loaded-cavity device refinement (round 4): A = K -
-    sigma_j M (symmetric indefinite, per-column shifts folded into A_mv),
-    P = the SPD vacuum (K + alpha M)^-1 spectral solve. ~20-40 iterations
-    reach the ~1e-3 relative correction accuracy a refinement sweep needs
-    (measured on the 12^3 half-filled dielectric)."""
-
-    def dots(u, v):
-        return jnp.sum(u * v, axis=0)  # (m,)
-
-    m = B.shape[1]
-    zeros = jnp.zeros_like(B)
-    one = jnp.ones((m,), B.dtype)
-    z1 = P_mv(B)
-    gamma1 = jnp.sqrt(jnp.maximum(dots(z1, B), 1e-30))
-
-    state = dict(
-        v0=zeros, v1=B, z1=z1,
-        gamma0=one, gamma1=gamma1,
-        w0=zeros, w1=zeros,
-        c0=one, c1=one, s0=jnp.zeros_like(one), s1=jnp.zeros_like(one),
-        eta=gamma1, x=zeros,
-    )
-
-    def body(j, s):
-        z = s["z1"] / s["gamma1"][None, :]
-        Az = A_mv(z)
-        delta = dots(Az, z)
-        v_new = (
-            Az
-            - (delta / s["gamma1"])[None, :] * s["v1"]
-            - (s["gamma1"] / s["gamma0"])[None, :] * s["v0"]
-        )
-        z_new = P_mv(v_new)
-        gamma_new = jnp.sqrt(jnp.maximum(dots(z_new, v_new), 1e-30))
-        a0 = s["c1"] * delta - s["c0"] * s["s1"] * s["gamma1"]
-        a1 = jnp.sqrt(a0 * a0 + gamma_new * gamma_new)
-        a2 = s["s1"] * delta + s["c0"] * s["c1"] * s["gamma1"]
-        a3 = s["s0"] * s["gamma1"]
-        c_new = a0 / a1
-        s_new = gamma_new / a1
-        w_new = (
-            z - a3[None, :] * s["w0"] - a2[None, :] * s["w1"]
-        ) / a1[None, :]
-        x = s["x"] + (c_new * s["eta"])[None, :] * w_new
-        return dict(
-            v0=s["v1"], v1=v_new, z1=z_new,
-            gamma0=s["gamma1"], gamma1=gamma_new,
-            w0=s["w1"], w1=w_new,
-            c0=s["c1"], c1=c_new, s0=s["s1"], s1=s_new,
-            eta=-s_new * s["eta"], x=x,
-        )
-
-    out = jax.lax.fori_loop(0, iters, body, state)
-    return out["x"]

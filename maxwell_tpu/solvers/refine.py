@@ -1,11 +1,10 @@
 """Mixed-precision residual refinement (SURVEY.md §6 "time-to-1e-8").
 
 The BASELINE contract asks for eigenpair residuals at 1e-8 — below the
-fp32 floor (~1e-5..1e-6 relative, problem-dependent) and far below what
-f64-on-TPU emulation can reach in reasonable time (measured: >130 s per
-LOBPCG iteration on the chip vs ~0.5 s in f32). The production design is
-therefore mixed precision: the TPU does the heavy Krylov work in f32,
-then a couple of f64 shift-invert sweeps on the host polish the block.
+fp32 floor (~1e-5..1e-6 relative, problem-dependent). For f32 solves
+this module is the mixed-precision road: the device does the heavy
+Krylov work in f32, then a couple of f64 shift-invert sweeps on the host
+polish the block. (f64 solves on the device reach 1e-8 directly.)
 
 Each sweep is Rayleigh-quotient-shifted inverse iteration per column
 (shift sigma_i = theta_i(1 - 1e-4): the small offset keeps K - sigma M
@@ -18,6 +17,8 @@ one factorization. This is the same shift-invert machinery as SURVEY.md
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import scipy.sparse as sp
@@ -122,6 +123,20 @@ def refine_f64(
     )
 
 
+@contextlib.contextmanager
+def _x64():
+    """Enable x64 for an f64 polish without leaking it into the caller's
+    process state."""
+    import jax
+
+    prev = bool(jax.config.jax_enable_x64)
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
 def refine_f64_pencil(
     build_pencil,
     X: np.ndarray,
@@ -130,58 +145,82 @@ def refine_f64_pencil(
     precond_alpha: float | None = 15.0,
     precond_iters: int = 16,
 ) -> EigenResult:
-    """Matrix-free f64 polish: warm-started LOBPCG on the host CPU.
+    """Matrix-free f64 polish: warm-started native-f64 LOBPCG on the
+    default device.
 
     The factorization-based `refine_f64` needs assembled scipy K/M; this
-    variant never assembles anything — it rebuilds the SAME pencil at f64 on
-    the CPU backend (`build_pencil()` must return a pencil whose vector
-    layout matches X's row ordering) and continues LOBPCG from the f32
-    eigenvector block. Works for stencil (matrix-free) pencils, loaded
-    cavities, and PMC alike — the round-1 gap VERDICT.md item 3 names
-    (BASELINE "time-to-1e-8 residual" on the assembly-free path).
+    variant never assembles anything — it rebuilds the SAME pencil at f64
+    (`build_pencil()` must return a pencil whose vector layout matches X's
+    row ordering) and continues LOBPCG from the f32 eigenvector block (a
+    host array or a device array). Works for stencil (matrix-free)
+    pencils, loaded cavities, and PMC alike — the round-1 gap VERDICT.md
+    item 3 names (BASELINE "time-to-1e-8 residual" on the assembly-free
+    path).
     """
-    import jax
     import jax.numpy as jnp
 
     from maxwell_tpu.solvers.lobpcg import lobpcg
     from maxwell_tpu.solvers.precond import shifted_cg_preconditioner
 
-    prev_x64 = bool(jax.config.jax_enable_x64)
-    jax.config.update("jax_enable_x64", True)
-    cpu = jax.devices("cpu")[0]
-    X = np.asarray(X, dtype=np.float64)
-    if X.ndim == 1:
-        X = X[:, None]
-    nev = X.shape[1]
-    try:
-        with jax.default_device(cpu):
-            pencil = build_pencil()
-            X0 = (
-                jnp.zeros((pencil.n_padded, nev), pencil.dtype)
-                .at[: pencil.n]
-                .set(jnp.asarray(X[: pencil.n]))
-            )
-            pc = None
-            if precond_alpha is not None:
-                try:
-                    # exact spectral solve when the pencil supports it
-                    # (vacuum-PEC taps): ~100x cheaper per application
-                    # than sweeping CG at 64^3-scale (solvers/spectral.py)
-                    from maxwell_tpu.solvers.spectral import (
-                        spectral_preconditioner,
-                    )
+    with _x64():
+        if X.ndim == 1:
+            X = X[:, None]
+        nev = X.shape[1]
+        pencil = build_pencil()
+        X0 = (
+            jnp.zeros((pencil.n_padded, nev), pencil.dtype)
+            .at[: pencil.n]
+            .set(jnp.asarray(X[: pencil.n], pencil.dtype))
+        )
+        pc = None
+        if precond_alpha is not None:
+            try:
+                # exact spectral solve when the pencil supports it
+                # (vacuum-PEC taps): ~100x cheaper per application than
+                # sweeping CG at 64^3-scale (solvers/spectral.py)
+                from maxwell_tpu.solvers.spectral import (
+                    spectral_preconditioner,
+                )
 
-                    pc = spectral_preconditioner(pencil, alpha=precond_alpha)
-                except (ValueError, AttributeError):
-                    pc = shifted_cg_preconditioner(
-                        pencil, alpha=precond_alpha, iters=precond_iters
-                    )
-            return lobpcg(
-                pencil, nev=nev, m=nev, maxiter=maxiter, tol=tol,
-                precond=pc, X0=X0,
-            )
-    finally:
-        # do not leak x64 into the caller's (TPU) process state: later
-        # Pallas compiles under x64 stage weak-int64 literals that hit the
-        # Mosaic convert recursion (see kernels/spmm._bellunion_kernel)
-        jax.config.update("jax_enable_x64", prev_x64)
+                pc = spectral_preconditioner(pencil, alpha=precond_alpha)
+            except (ValueError, AttributeError):
+                pc = shifted_cg_preconditioner(
+                    pencil, alpha=precond_alpha, iters=precond_iters
+                )
+        return lobpcg(
+            pencil, nev=nev, m=nev, maxiter=maxiter, tol=tol,
+            precond=pc, X0=X0,
+        )
+
+
+def refine_f64_dist(
+    build_dpencil,
+    mesh,
+    X,
+    tol: float = 1e-8,
+    maxiter: int = 60,
+    precond_alpha: float | None = 15.0,
+    deflate_Q: np.ndarray | None = None,
+) -> EigenResult:
+    """Distributed matrix-free f64 polish: `refine_f64_pencil` for a
+    sharded pencil. `build_dpencil()` rebuilds the SAME distributed pencil
+    (same shard count and layout) at f64; LOBPCG continues from X under
+    `mesh` in native f64.
+
+    X: the f32 block, a host (n, k) array in the original ordering or a
+    device block in the stacked layout (`lobpcg_dist(...,
+    return_device=True)`). deflate_Q: earlier eigenvectors (original
+    ordering) to hard-deflate, as a staged solve's polish needs — a
+    warm-started block above them would otherwise drift down onto them.
+    Returns host f64 eigenvectors in the original ordering.
+    """
+    from maxwell_tpu.solvers.dist_solve import lobpcg_dist
+
+    with _x64():
+        if X.ndim == 1:
+            X = X[:, None]
+        return lobpcg_dist(
+            build_dpencil(), mesh, nev=X.shape[1], m=X.shape[1],
+            maxiter=maxiter, tol=tol, precond_alpha=precond_alpha,
+            deflate_Q=deflate_Q, X0=X,
+        )

@@ -73,17 +73,6 @@ def build_shift_invert_op(
         )
     if KM is not None:
         K, M = sp.csr_matrix(KM[0]), sp.csr_matrix(KM[1])
-    elif pencil.kernel == "union":
-        # fused-layout pencils carry the mass matrix as K's second value
-        # stream; M is None BY CONSTRUCTION and must not mean "identity"
-        K = pencil.K.to_csr("a")
-        M = pencil.K.to_csr("b")
-    elif pencil.kernel == "bellpairs":
-        raise ValueError(
-            "shift_invert factorization on a bellpairs pencil: pass "
-            "KM=(problem.K, problem.M) (the layout's to_csr has no "
-            "second-stream export)"
-        )
     else:
         K = pencil.K.to_csr()
         M = (

@@ -1,18 +1,16 @@
-"""Tiled BSR ("blocked-ELL") sparse matrix storage for TPU HBM.
+"""Tiled BSR ("blocked-ELL") sparse matrix storage in device memory.
 
-TPU-native replacement for the reference's Epetra-style CSR (SURVEY.md §2 C3;
+Replacement for the reference's Epetra-style CSR (SURVEY.md §2 C3;
 BASELINE.json: "Epetra-style CSR -> tiled BSR in HBM"). Design rationale
 (SURVEY.md §7.4):
 
-- TPUs have no efficient scalar gather; CSR rank-loops are hostile to the
-  hardware. Dense b x b blocks turn SpMV/SpMM into streams of small matmuls.
+- Dense b x b blocks turn SpMV/SpMM into streams of small dense products
+  with one column index per block instead of one per entry.
 - Each block-row stores a FIXED number S of blocks (ELL padding, "pad don't
   branch"): values have static shape (n_brows, S, b, b) and block-column
   indices (n_brows, S) int32. Padding entries point at block-column 0 with
   all-zero values, so no masking is needed on the compute path.
-- The per-block-row contraction y_r = sum_s B[r,s] @ X[cols[r,s]] is expressed
-  as one (b, S*b) @ (S*b, m) matmul; with b=8, S a multiple of 16, the
-  contraction dimension S*b is a multiple of 128 — exactly MXU-shaped.
+- The per-block-row contraction is y_r = sum_s B[r,s] @ X[cols[r,s]].
 
 The logical dimension n is zero-padded up to n_brows*b. Padded rows/cols are
 all-zero in the values, so vectors whose padding entries are zero stay
@@ -45,40 +43,6 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _window_metadata(blocks_np: np.ndarray, cols_np: np.ndarray, b: int):
-    """Per-tile aligned X-window metadata for the windowed Pallas kernel.
-
-    Tile = R block rows (R*b = 128). win_unit W_u = the max per-tile column
-    span; window starts are aligned DOWN to W_u so the kernel can fetch two
-    adjacent (W_u*b)-row panels of X through the standard BlockSpec pipeline
-    (offsets are multiples of the block shape). Narrow windows require a
-    bandwidth-reduced ordering (sparse/reorder.py).
-    Returns (win_start (n_tiles,), cols_rel (nbr, S), W_u) or (None, None, 0).
-    """
-    R = max(128 // b, 1)
-    nbr, S = cols_np.shape
-    if nbr % R != 0 or nbr == 0:
-        return None, None, 0
-    n_tiles = nbr // R
-    nz = np.abs(blocks_np).max(axis=(2, 3)) > 0  # (nbr, S)
-    cols_t = cols_np.reshape(n_tiles, R * S)
-    nz_t = nz.reshape(n_tiles, R * S)
-    big = np.where(nz_t, cols_t, np.iinfo(np.int32).max)
-    small = np.where(nz_t, cols_t, -1)
-    cmin = np.minimum(big.min(axis=1), nbr - 1)  # empty tiles -> clamp
-    cmax = small.max(axis=1)
-    span = np.maximum(cmax - cmin + 1, 1)
-    W_u = int(span.max())
-    aligned = (cmin // W_u).astype(np.int32)  # in W_u units
-    # relative columns; padding (zero) blocks clamp to 0
-    aligned_per_row = np.repeat(aligned, R)  # (nbr,)
-    rel = cols_np - aligned_per_row[:, None] * W_u
-    rel = np.where(nz, rel, 0).astype(np.int32)
-    if rel.min() < 0 or (rel[nz] >= 2 * W_u).any():
-        return None, None, 0
-    return aligned, rel, W_u
-
-
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True)
 class BSRMatrix:
@@ -93,28 +57,15 @@ class BSRMatrix:
     blocks: jax.Array
     cols: jax.Array
     n: int
-    # windowed-kernel metadata (optional; filled by from_csr). win_start:
-    # (n_tiles,) int32 aligned window index per R-block-row tile; cols_rel:
-    # (n_brows, S) int32 columns relative to the tile's aligned window start;
-    # win_unit: window unit in block rows (aux). See kernels/spmm.py.
-    win_start: jax.Array | None = None
-    cols_rel: jax.Array | None = None
-    win_unit: int = 0
 
     # --- pytree plumbing -------------------------------------------------
     def tree_flatten(self):
-        return (self.blocks, self.cols, self.win_start, self.cols_rel), (
-            self.n,
-            self.win_unit,
-        )
+        return (self.blocks, self.cols), (self.n,)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        blocks, cols, win_start, cols_rel = children
-        return cls(
-            blocks=blocks, cols=cols, n=aux[0],
-            win_start=win_start, cols_rel=cols_rel, win_unit=aux[1],
-        )
+        blocks, cols = children
+        return cls(blocks=blocks, cols=cols, n=aux[0])
 
     # --- derived shapes --------------------------------------------------
     @property
@@ -150,10 +101,10 @@ class BSRMatrix:
         """Convert a scipy sparse matrix to blocked-ELL.
 
         align_slots: round the slot count S up to this multiple (default:
-        chosen so S*b is a multiple of 128, MXU-aligning the contraction).
+        chosen so S*b is a multiple of 128).
         row_align: round the block-row count up to this multiple (default:
-        one 128-row Pallas tile; pass n_shards * tile so the matrix splits
-        evenly into shards — SURVEY.md §2 C15).
+        128 scalar rows; pass n_shards * that so the matrix splits evenly
+        into shards — SURVEY.md §2 C15).
         """
         ensure_x64_for(dtype)
         A = sp.csr_matrix(A)
@@ -205,14 +156,10 @@ class BSRMatrix:
             blocks, cols, _ = native.bell_from_csr(
                 A_pad.indptr, A_pad.indices, A_pad.data, n_pad, b, S
             )
-            ws, rel, wu = _window_metadata(blocks, cols, b)
             return BSRMatrix(
                 blocks=jnp.asarray(blocks, dtype=dtype),
                 cols=jnp.asarray(cols),
                 n=n,
-                win_start=None if ws is None else jnp.asarray(ws),
-                cols_rel=None if rel is None else jnp.asarray(rel),
-                win_unit=wu,
             )
 
         # fallback: scipy BSR + python packing
@@ -231,14 +178,10 @@ class BSRMatrix:
             k = hi - lo
             blocks[r, :k] = data[lo:hi]
             cols[r, :k] = indices[lo:hi]
-        ws, rel, wu = _window_metadata(blocks, cols, b)
         return BSRMatrix(
             blocks=jnp.asarray(blocks, dtype=dtype),
             cols=jnp.asarray(cols),
             n=n,
-            win_start=None if ws is None else jnp.asarray(ws),
-            cols_rel=None if rel is None else jnp.asarray(rel),
-            win_unit=wu,
         )
 
     def to_csr(self) -> sp.csr_matrix:
@@ -268,8 +211,8 @@ class BSRMatrix:
 
 
 # ---------------------------------------------------------------------------
-# Reference (pure-jnp) SpMV / SpMM. The Pallas kernels in
-# maxwell_tpu/kernels/ are drop-in replacements validated against these.
+# Reference (pure-jnp) SpMV / SpMM. The kernel in maxwell_tpu/kernels/spmm.py
+# is a drop-in replacement validated against these.
 # ---------------------------------------------------------------------------
 
 
@@ -277,15 +220,15 @@ class BSRMatrix:
 def bsr_matmat_ref(A: BSRMatrix, X: jax.Array) -> jax.Array:
     """Y = A @ X for X of shape (n_padded, m). Pure-jnp blocked-ELL product.
 
-    Gathers X block-rows per slot then contracts with one einsum; XLA lowers
-    the gather to dynamic slices and fuses the contraction onto the MXU.
+    Gathers X block-rows per slot (materialising an (nbr, S, b, m) array)
+    then contracts with one einsum.
     """
     b = A.b
     # X may be TALLER than A's row space (halo-extended local buffers in the
     # distributed pencil); cols index into X's block rows.
     Xb = X.reshape(-1, b, X.shape[-1])  # (x_brows, b, m)
     Xg = Xb[A.cols]  # (nbr, S, b, m)
-    # accumulate at (at least) input precision on the MXU
+    # accumulate at (at least) input precision; HIGHEST keeps f32 out of TF32
     acc = jnp.result_type(A.blocks.dtype, X.dtype)
     Y = jnp.einsum(
         "rsij,rsjm->rim", A.blocks, Xg,

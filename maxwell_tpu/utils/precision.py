@@ -1,38 +1,31 @@
 """fp32-true matmul precision for the solver path (SURVEY.md §7.5 hard
 part 4 — "Lanczos numerical stability at 1e-8").
 
-JAX's DEFAULT matmul precision on TPU truncates fp32 operands to bf16
-before they hit the MXU (measured on the target chip: ~2.4e-3 relative
-error on a 512x512 fp32 matmul). Krylov eigensolvers build Gram matrices,
-orthonormalize bases and rotate Ritz blocks with those matmuls; at bf16
-precision LOBPCG stalls around a 5e-2 relative residual (observed on the
-real TPU bench) instead of converging to 1e-6.
+On the GPU, JAX's DEFAULT matmul precision lets XLA run f32 products on
+the tensor cores in TF32, which keeps about three decimal digits. Krylov
+eigensolvers build Gram matrices, orthonormalize bases and rotate Ritz
+blocks with those matmuls; at that precision LOBPCG stalls orders of
+magnitude above the f32 floor instead of converging to 1e-6.
 
 Every solver entry point therefore traces its jit-ed loop under
-`jax.default_matmul_precision("highest")` (fp32-true accumulation via
-multi-pass bf16 on the MXU). The context is part of JAX's jit cache key,
-so wrapping the *call* is sufficient: the compiled loop keeps the
-precision it was traced with. Operator-apply kernels (BSR einsum, Pallas
-SpMM, stencil applies) set precision explicitly at the einsum site
-instead, so they are exact regardless of caller context.
-
-Opt-out (e.g. for throughput experiments where bf16 is acceptable):
-    MAXWELL_TPU_MATMUL_PRECISION=default python ...
+`jax.default_matmul_precision("highest")` (true f32 products). The
+context is part of JAX's jit cache key, so wrapping the *call* is
+sufficient: the compiled loop keeps the precision it was traced with.
+Operator applies (BSR einsum, the Triton SpMM, stencil applies) set their
+precision at the product site instead, so they are exact regardless of
+the caller's context. f64 products are unaffected.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
-
-MATMUL_PRECISION = os.environ.get("MAXWELL_TPU_MATMUL_PRECISION", "highest")
 
 
 def solver_precision():
     """Context manager: trace solver code fp32-true."""
-    return jax.default_matmul_precision(MATMUL_PRECISION)
+    return jax.default_matmul_precision("highest")
 
 
 def fp32_true(fn):

@@ -50,7 +50,7 @@ def spmv_rate(nnz: int, seconds: float) -> float:
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """jax.profiler trace context (per-kernel HBM/MXU utilization on TPU)."""
+    """jax.profiler trace context (per-kernel device times)."""
     import jax
 
     jax.profiler.start_trace(logdir)

@@ -49,7 +49,7 @@ def pieces():
     pj = vols(lambda p, Y: p.project(Y),
               (dsp.partition_specs(), row), row, dsp, X)
     model = CommModel(ny=N, nz=N, cells=N // D, m=M,
-                      t_compute_iter_s=1.0)
+                      t_compute_iter_s=1.0, bw_link=1.0, bw_host=1.0)
     return km, sp, pj, model
 
 

@@ -1,8 +1,11 @@
-"""Distributed PRODUCTION kernel (round-2 VERDICT item 1): the BELLUnion
-Pallas SpMM running INSIDE shard_map — interior/boundary chunk split, halo
-collectives, psum reductions — parity vs the single-chip reference pencil
-and a full distributed eigensolve (SURVEY.md §3.5: Pallas kernels + halo
-collectives in one program; BASELINE.json config 4)."""
+"""Distributed blocked-ELL apply with the Triton SpMM kernel INSIDE
+shard_map — interior/boundary split, halo collectives, psum reductions —
+parity vs the single-device reference pencil and a full distributed
+eigensolve (SURVEY.md §3.5; BASELINE.json config 4). The kernel runs in
+interpret mode here; chip_smoke.py --four runs it compiled."""
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +13,9 @@ import numpy as np
 import pytest
 import scipy.linalg
 
+import maxwell_tpu.dist.partition as partition
 from maxwell_tpu.dist import make_mesh, partition_problem
+from maxwell_tpu.kernels.spmm import bsr_matmat_triton, matmat_fn
 from maxwell_tpu.problems import BrickCavity3D, RectCavity2D
 from maxwell_tpu.solvers import Pencil
 from maxwell_tpu.solvers.dist_solve import lobpcg_dist, spmm_dist
@@ -24,15 +29,30 @@ def mesh():
     return make_mesh(D)
 
 
+@pytest.fixture
+def triton_interpret(monkeypatch):
+    """Route kernel="triton" to the interpret-mode kernel on the CPU."""
+    interp = functools.partial(bsr_matmat_triton, interpret=True)
+    monkeypatch.setattr(
+        partition, "matmat_fn",
+        lambda k: interp if k == "triton" else matmat_fn(k),
+    )
+
+
+def _triton(cav, **kw):
+    dp = partition_problem(cav, D, kernel="ref", dtype=jnp.float32, **kw)
+    out = dataclasses.replace(dp, kernel="triton")
+    object.__setattr__(out, "perm", dp.perm)
+    return out
+
+
 @pytest.mark.parametrize("reorder", [False, True])
-def test_sharded_union_spmm_parity(mesh, reorder):
-    """Sharded union-kernel SpMM == single-device reference SpMM, for both
-    value streams. reorder=True gives the shallow-halo ppermute fast path;
+def test_sharded_union_spmm_parity(mesh, triton_interpret, reorder):
+    """Sharded Triton-kernel SpMM == single-device reference SpMM, for K
+    and M. reorder=True gives the shallow-halo ppermute fast path;
     reorder=False the deep-halo all_gather fallback."""
     cav = BrickCavity3D(nx=6, ny=6, nz=6)
-    dp = partition_problem(
-        cav, D, kernel="union", dtype=jnp.float32, reorder=reorder
-    )
+    dp = _triton(cav, reorder=reorder)
     single = Pencil.from_problem(cav, block=8, kernel="ref", dtype=jnp.float32)
     n = cav.n_edges
     n_pad_g = dp.D * dp.L * dp.b
@@ -49,13 +69,13 @@ def test_sharded_union_spmm_parity(mesh, reorder):
         )
 
 
-def test_sharded_union_km_shares_one_exchange(mesh):
-    """KM_mm on the union pencil returns (K@X, M@X) matching the separate
-    applies bit-for-bit (one halo exchange serves both streams)."""
+def test_sharded_union_km_shares_one_exchange(mesh, triton_interpret):
+    """KM_mm on the Triton pencil returns (K@X, M@X) matching the separate
+    applies bit-for-bit."""
     from jax.sharding import PartitionSpec as P
 
     cav = RectCavity2D(nx=16, ny=16)
-    dp = partition_problem(cav, D, kernel="union", dtype=jnp.float32)
+    dp = _triton(cav)
     n_pad_g = dp.D * dp.L * dp.b
     X = jax.random.normal(jax.random.PRNGKey(1), (n_pad_g, 3), jnp.float32)
 
@@ -73,11 +93,11 @@ def test_sharded_union_km_shares_one_exchange(mesh):
     np.testing.assert_array_equal(np.asarray(MX), np.asarray(Mr))
 
 
-def test_dist_lobpcg_union(mesh):
-    """Full distributed eigensolve on the production kernel vs dense
-    oracle (f32: tol at the single-precision floor for this size)."""
+def test_dist_lobpcg_union(mesh, triton_interpret):
+    """Full distributed eigensolve on the Triton kernel vs dense oracle
+    (f32: tol at the single-precision floor for this size)."""
     cav = RectCavity2D(nx=16, ny=16)
-    dp = partition_problem(cav, D, kernel="union", dtype=jnp.float32)
+    dp = _triton(cav)
     res = lobpcg_dist(dp, mesh, nev=4, maxiter=80, tol=1e-5,
                       precond_alpha=10.0)
     dense = scipy.linalg.eigh(
@@ -90,8 +110,8 @@ def test_dist_lobpcg_union(mesh):
 
 def test_mesh_topology_report(mesh):
     """Hosts-major mesh ordering + link-class report (SURVEY §5.8): on the
-    single-host simulated mesh every neighbor link is ICI; on a real pod
-    the dcn count is (hosts - 1)."""
+    single-host simulated mesh every neighbor link is intra-host; across
+    hosts the dcn count is (hosts - 1)."""
     from maxwell_tpu.dist import mesh_topology_report
 
     rep = mesh_topology_report(mesh)

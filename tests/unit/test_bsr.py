@@ -23,7 +23,7 @@ def test_csr_bsr_roundtrip(random_csr, block):
     B = BSRMatrix.from_csr(random_csr, block=block, dtype=jnp.float64)
     back = B.to_csr()
     assert abs(back - random_csr).max() < 1e-12
-    assert B.slots * B.b % 128 == 0, "contraction dim must be MXU-aligned"
+    assert B.slots * B.b % 128 == 0, "contraction dim must be 128-aligned"
 
 
 def test_spmv_vs_scipy(random_csr):

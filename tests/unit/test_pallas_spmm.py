@@ -1,14 +1,25 @@
-"""Pallas SpMM kernel vs jnp reference (interpret mode on CPU; the same
-kernel compiles for TPU — SURVEY.md §4 unit tier)."""
+"""Blocked-ELL SpMM: the Triton kernel (interpret mode on the CPU) and the
+XLA reference against scipy f64, plus the one place the apply is chosen
+(kernels/spmm.resolve_kernel, and per call kernels/spmm.choose_apply). The
+compiled kernel runs on the card in the `gpu`-marked test and in
+chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 
-from maxwell_tpu.problems import RectCavity2D
+from maxwell_tpu.kernels import spmm
+from maxwell_tpu.kernels.spmm import bsr_matmat_triton, resolve_kernel
+from maxwell_tpu.problems import BrickCavity3D, RectCavity2D
 from maxwell_tpu.sparse.bsr import BSRMatrix, bsr_matmat_ref
-from maxwell_tpu.kernels.spmm import bsr_matmat_pallas
+from maxwell_tpu.sparse.reorder import PermutedProblem
+
+APPLIES = {
+    "ref": bsr_matmat_ref,
+    "triton": lambda A, X: bsr_matmat_triton(A, X, interpret=True),
+}
 
 
 @pytest.fixture(scope="module")
@@ -17,434 +28,183 @@ def fem_bsr():
     return BSRMatrix.from_csr(cav.K, block=8, dtype=jnp.float32)
 
 
+@pytest.fixture(scope="module")
+def brick():
+    cav = BrickCavity3D(nx=4, ny=4, nz=3)
+    return {"3d": cav.K.tocsr(), "rcm": PermutedProblem(cav).K.tocsr()}
+
+
+def _check(Y, K, X, n, dtype):
+    """Y[:n] against the scipy f64 product, relative to ||K||_inf ||X||_max
+    (the sums run in another order than scipy's)."""
+    ref = K @ np.asarray(X, np.float64)[:n]
+    scale = abs(K).sum(axis=1).max() * np.abs(np.asarray(X)).max()
+    tol = 1e-6 if dtype == jnp.float32 else 1e-13
+    err = np.abs(np.asarray(Y, np.float64)[:n] - ref).max()
+    assert err <= tol * scale, f"rel err {err / scale:.2e}"
+
+
 def test_pallas_spmm_matches_ref(fem_bsr):
     A = fem_bsr
-    key = jax.random.PRNGKey(0)
-    X = jax.random.normal(key, (A.n_padded, 8), jnp.float32)
-    Y_ref = bsr_matmat_ref(A, X)
-    Y = bsr_matmat_pallas(A, X, interpret=True)
+    X = jax.random.normal(jax.random.PRNGKey(0), (A.n_padded, 8), jnp.float32)
+    Y = bsr_matmat_triton(A, X, interpret=True)
     np.testing.assert_allclose(
-        np.asarray(Y), np.asarray(Y_ref), rtol=1e-5, atol=1e-5
+        np.asarray(Y), np.asarray(bsr_matmat_ref(A, X)), rtol=1e-5, atol=1e-5
     )
 
 
 def test_pallas_spmm_wide_block(fem_bsr):
     A = fem_bsr
-    key = jax.random.PRNGKey(1)
-    X = jax.random.normal(key, (A.n_padded, 16), jnp.float32)
-    Y_ref = bsr_matmat_ref(A, X)
-    Y = bsr_matmat_pallas(A, X, interpret=True)
+    X = jax.random.normal(jax.random.PRNGKey(1), (A.n_padded, 16), jnp.float32)
+    Y = bsr_matmat_triton(A, X, interpret=True)
     np.testing.assert_allclose(
-        np.asarray(Y), np.asarray(Y_ref), rtol=1e-5, atol=1e-5
+        np.asarray(Y), np.asarray(bsr_matmat_ref(A, X)), rtol=1e-5, atol=1e-5
     )
 
 
-def test_pallas_windowed_matches_ref(fem_bsr):
-    from maxwell_tpu.kernels.spmm import bsr_matmat_pallas_windowed
+@pytest.mark.parametrize("impl", ["ref", "triton"])
+@pytest.mark.parametrize("order", ["3d", "rcm"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+@pytest.mark.parametrize("m", [1, 8, 24])
+@pytest.mark.parametrize("b", [4, 8])
+def test_spmm_vs_scipy(brick, impl, order, dtype, m, b):
+    K = brick[order]
+    n = K.shape[0]
+    A = BSRMatrix.from_csr(K, block=b, align_slots=4, dtype=dtype)
+    rng = np.random.default_rng(b * 100 + m)
+    X = np.zeros((A.n_padded, m))
+    X[:n] = rng.standard_normal((n, m))
+    Y = APPLIES[impl](A, jnp.asarray(X, dtype))
+    assert Y.shape == (A.n_padded, m) and Y.dtype == dtype
+    _check(Y, K, X, n, dtype)
 
-    A = fem_bsr
-    assert A.win_start is not None and A.win_unit > 0
-    key = jax.random.PRNGKey(2)
-    X = jax.random.normal(key, (A.n_padded, 8), jnp.float32)
-    Y_ref = bsr_matmat_ref(A, X)
-    Y = bsr_matmat_pallas_windowed(A, X, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(Y), np.asarray(Y_ref), rtol=1e-5, atol=1e-5
+
+@pytest.mark.parametrize("impl", ["ref", "triton"])
+def test_spmm_halo_taller_x(impl):
+    """X taller than A's row space (the distributed halo-extended local
+    buffer): cols index past A's own rows, rows past them stay unread."""
+    L, H, b, m = 40, 8, 4, 3
+    rng = np.random.default_rng(7)
+    # rectangular (own rows) x (own + halo columns), as blocked-ELL
+    C = sp.random(L * b, (L + 2 * H) * b, density=0.05, random_state=3)
+    Cb = sp.csr_matrix(C).tobsr(blocksize=(b, b))
+    S = int(np.diff(Cb.indptr).max())
+    blocks = np.zeros((L, S, b, b))
+    cols = np.zeros((L, S), np.int32)
+    for r in range(L):
+        lo, hi = Cb.indptr[r], Cb.indptr[r + 1]
+        blocks[r, : hi - lo] = Cb.data[lo:hi]
+        cols[r, : hi - lo] = Cb.indices[lo:hi]
+    A = BSRMatrix(
+        blocks=jnp.asarray(blocks), cols=jnp.asarray(cols), n=L * b
     )
+    X = rng.standard_normal(((L + 2 * H + 1) * b, m))
+    Y = APPLIES[impl](A, jnp.asarray(X))
+    assert Y.shape == (L * b, m)
+    ref = C @ X[: (L + 2 * H) * b]
+    np.testing.assert_allclose(np.asarray(Y), ref, rtol=1e-12, atol=1e-12)
 
 
-def test_pallas_windowed_3d_rcm():
-    """Windowed kernel on an RCM-ordered 3D operator (realistic bandwidth)."""
-    from maxwell_tpu.kernels.spmm import bsr_matmat_pallas_windowed
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
-    A = BSRMatrix.from_csr(cav.K, block=8, dtype=jnp.float32)
-    assert A.win_start is not None
-    key = jax.random.PRNGKey(3)
-    X = jax.random.normal(key, (A.n_padded, 8), jnp.float32)
-    Y_ref = bsr_matmat_ref(A, X)
-    Y = bsr_matmat_pallas_windowed(A, X, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(Y), np.asarray(Y_ref), rtol=1e-4, atol=1e-4
-    )
+@pytest.mark.parametrize(
+    "platform, want", [("cpu", "ref"), ("gpu", "triton")]
+)
+def test_auto_kernel_per_platform(platform, want):
+    assert resolve_kernel("auto", platform) == want
+    assert resolve_kernel("ref", platform) == "ref"
 
 
-def test_bellpairs_roundtrip_and_kernel():
-    """BELLPairs paired/chunked layout: exact CSR round-trip and the
-    chunked-grid Pallas kernel (interpret mode) vs scipy (round-2
-    production kernel; sparse/bellpairs.py design note)."""
-    import scipy.sparse as sp
+def test_auto_kernel_follows_first_device(monkeypatch):
+    class _Dev:
+        platform = "gpu"
 
-    from maxwell_tpu.kernels.spmm import bellpairs_matmat_pallas
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.bellpairs import BELLPairs
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
-    A = BELLPairs.from_csr(cav.K, block=8, Cp=8, dtype=jnp.float32)
-    K32 = sp.csr_matrix(cav.K, dtype=np.float32)
-    assert abs(A.to_csr() - K32).max() == 0.0
-    # streamed traffic must not exceed stored (chunk clamping is live)
-    assert A.nnz_streamed <= A.nnz_dense
-
-    rng = np.random.default_rng(0)
-    X = jnp.asarray(rng.standard_normal((A.n_padded, 8)).astype(np.float32))
-    Y = bellpairs_matmat_pallas(A, X, interpret=True)
-    Yref = K32 @ np.asarray(X)[: cav.K.shape[0]]
-    err = np.abs(np.asarray(Y)[: cav.K.shape[0]] - Yref).max()
-    assert err <= 1e-5 * np.abs(Yref).max()
+    monkeypatch.setattr(jax, "devices", lambda *a: [_Dev()])
+    assert resolve_kernel() == "triton"
 
 
-def test_bellpairs_windowed_kernel():
-    """Windowed BELLPairs variant (no X-in-VMEM limit) parity."""
-    import scipy.sparse as sp
-
-    from maxwell_tpu.kernels.spmm import bellpairs_matmat_pallas_windowed
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.bellpairs import BELLPairs
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=8, ny=8, nz=8))
-    A = BELLPairs.from_csr(cav.K, block=8, Cp=8, dtype=jnp.float32)
-    assert A.win_start is not None
-    K32 = sp.csr_matrix(cav.K, dtype=np.float32)
-    rng = np.random.default_rng(1)
-    X = jnp.asarray(rng.standard_normal((A.n_padded, 8)).astype(np.float32))
-    Y = bellpairs_matmat_pallas_windowed(A, X, interpret=True)
-    Yref = K32 @ np.asarray(X)[: cav.K.shape[0]]
-    assert (
-        np.abs(np.asarray(Y)[: cav.K.shape[0]] - Yref).max()
-        <= 1e-5 * np.abs(Yref).max()
-    )
-
-
-def test_bellpairs_km_fused_and_banded():
-    """Fused K/M apply (one union structure, two value streams) and the
-    row-band split for X beyond the VMEM budget — both vs scipy (round-2
-    production path; kernels/spmm.py bellpairs_km_matmat_pallas)."""
-    import scipy.sparse as sp
-
-    from maxwell_tpu.kernels.spmm import (
-        bellpairs_km_matmat_banded,
-        bellpairs_km_matmat_pallas,
-        bellpairs_matmat_banded,
-    )
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.bellpairs import BELLPairs
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
-    A = BELLPairs.from_csr(cav.K, block=8, Cp=8, dtype=jnp.float32, B=cav.M)
-    n = cav.K.shape[0]
-    rng = np.random.default_rng(1)
-    X = jnp.asarray(rng.standard_normal((A.n_padded, 8)).astype(np.float32))
-    Xn = np.asarray(X)[:n]
-    refK = sp.csr_matrix(cav.K, dtype=np.float64) @ Xn
-    refM = sp.csr_matrix(cav.M, dtype=np.float64) @ Xn
-
-    Yk, Ym = bellpairs_km_matmat_pallas(A, X, interpret=True)
-    assert np.abs(np.asarray(Yk)[:n] - refK).max() <= 1e-5 * np.abs(refK).max()
-    assert np.abs(np.asarray(Ym)[:n] - refM).max() <= 1e-5 * np.abs(refM).max()
-
-    # band split small enough to force several bands
-    AB = A.banded(m=8, budget_bytes=12 * 1024)
-    assert len(AB.bands) >= 2
-    Yb = bellpairs_matmat_banded(AB, X, interpret=True)
-    assert np.abs(np.asarray(Yb)[:n] - refK).max() <= 1e-5 * np.abs(refK).max()
-    Yk2, Ym2 = bellpairs_km_matmat_banded(AB, X, interpret=True)
-    assert np.abs(np.asarray(Ym2)[:n] - refM).max() <= 1e-5 * np.abs(refM).max()
-
-
-def test_pencil_bellpairs_kernel_dispatch():
-    """Pencil(kernel="bellpairs"): K_mm/M_mm/KM_mm parity vs the ref pencil
-    (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from maxwell_tpu.problems import BrickCavity3D
+@pytest.mark.parametrize("kernel", ["triton", "union", "pallas", "bogus"])
+def test_kernel_rejected_on_cpu(kernel):
+    """An explicit GPU kernel on the CPU, or a removed/unknown name, is an
+    error — never a silent fallback."""
     from maxwell_tpu.solvers.operator import Pencil
 
-    cav = BrickCavity3D(nx=5, ny=5, nz=5)
-    pen = Pencil.from_problem(cav, kernel="bellpairs", dtype=jnp.float32)
-    ref = Pencil.from_problem(cav, kernel="ref", dtype=jnp.float32)
-    key = jax.random.PRNGKey(0)
-    X = jax.random.normal(key, (pen.n_padded, 8), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        Yk, Ym = pen.KM_mm(X)
-    n = pen.n
-    rk = ref.K_mm(X[: ref.n_padded])[:n]
-    rm = ref.M_mm(X[: ref.n_padded])[:n]
-    np.testing.assert_allclose(np.asarray(Yk[:n]), np.asarray(rk),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(Ym[:n]), np.asarray(rm),
-                               rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError):
+        resolve_kernel(kernel, "cpu")
+    with pytest.raises(ValueError):
+        Pencil.from_problem(RectCavity2D(nx=4, ny=4), kernel=kernel)
 
 
-def test_bellunion_roundtrip_kernel_banded():
-    """BELLUnion tile-union layout: exact CSR round-trip (both streams),
-    chunked-grid kernel and row-band split vs scipy (round-2 production
-    layout; sparse/bellunion.py design note)."""
-    import scipy.sparse as sp
+def test_triton_rejects_non_pow2_block():
+    cav = RectCavity2D(nx=6, ny=6)
+    A = BSRMatrix.from_csr(cav.K, block=3, dtype=jnp.float32)
+    X = jnp.ones((A.n_padded, 2), jnp.float32)
+    with pytest.raises(ValueError):
+        bsr_matmat_triton(A, X, interpret=True)
 
-    from maxwell_tpu.kernels.spmm import (
-        bellunion_matmat_banded,
-        bellunion_matmat_pallas,
+
+def _abstract_bsr(n_brows, slots, b, dtype=jnp.float32):
+    """A BSRMatrix of ShapeDtypeStructs: shapes to reason about without
+    allocating them."""
+    return BSRMatrix(
+        blocks=jax.ShapeDtypeStruct((n_brows, slots, b, b), dtype),
+        cols=jax.ShapeDtypeStruct((n_brows, slots), jnp.int32),
+        n=n_brows * b,
     )
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.bellunion import BELLUnion
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=6, ny=5, nz=4))
-    A = BELLUnion.from_csr(cav.K, block=8, dtype=jnp.float32, B=cav.M)
-    n = cav.K.shape[0]
-    assert abs(A.to_csr("a") - sp.csr_matrix(cav.K, dtype=np.float32)).max() == 0
-    assert abs(A.to_csr("b") - sp.csr_matrix(cav.M, dtype=np.float32)).max() == 0
-
-    rng = np.random.default_rng(2)
-    X = jnp.asarray(rng.standard_normal((A.n_padded, 8)).astype(np.float32))
-    Xn = np.asarray(X)[:n]
-    refK = sp.csr_matrix(cav.K, dtype=np.float64) @ Xn
-    refM = sp.csr_matrix(cav.M, dtype=np.float64) @ Xn
-    Yk = bellunion_matmat_pallas(A, X, interpret=True)
-    Ym = bellunion_matmat_pallas(A, X, interpret=True, stream="b")
-    assert np.abs(np.asarray(Yk)[:n] - refK).max() <= 1e-5 * np.abs(refK).max()
-    assert np.abs(np.asarray(Ym)[:n] - refM).max() <= 1e-5 * np.abs(refM).max()
-
-    # banded split on a larger RCM problem (windows small relative to n)
-    cav2 = PermutedProblem(BrickCavity3D(nx=8, ny=8, nz=8))
-    A2 = BELLUnion.from_csr(cav2.K, block=8, dtype=jnp.float32)
-    n2 = cav2.K.shape[0]
-    AB = A2.banded(m=8, budget_bytes=24 * 1024)
-    assert len(AB.bands) >= 2
-    X2 = jnp.asarray(rng.standard_normal((A2.n_padded, 8)).astype(np.float32))
-    ref2 = sp.csr_matrix(cav2.K, dtype=np.float64) @ np.asarray(X2)[:n2]
-    Yb = bellunion_matmat_banded(AB, X2, interpret=True)
-    assert np.abs(np.asarray(Yb)[:n2] - ref2).max() <= 1e-5 * np.abs(ref2).max()
 
 
-def test_pencil_union_kernel_dispatch():
-    """Pencil(kernel="union") K_mm/M_mm/KM_mm parity vs the ref pencil."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.solvers.operator import Pencil
-
-    cav = BrickCavity3D(nx=5, ny=5, nz=5)
-    pen = Pencil.from_problem(cav, kernel="union", dtype=jnp.float32)
-    ref = Pencil.from_problem(cav, kernel="ref", dtype=jnp.float32)
-    key = jax.random.PRNGKey(0)
-    X = jax.random.normal(key, (pen.n_padded, 8), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        Yk, Ym = pen.KM_mm(X)
-    n = pen.n
-    rk = ref.K_mm(X[: ref.n_padded])[:n]
-    rm = ref.M_mm(X[: ref.n_padded])[:n]
-    np.testing.assert_allclose(np.asarray(Yk[:n]), np.asarray(rk),
-                               rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(Ym[:n]), np.asarray(rm),
-                               rtol=2e-5, atol=2e-5)
+@pytest.mark.parametrize(
+    "b, m, want",
+    [(4, 1, "ref"), (8, 1, "ref"), (4, 2, "triton"), (4, 8, "triton"),
+     (8, 24, "triton"), (3, 24, "ref"), (6, 8, "ref")],
+)
+def test_gpu_apply_choice_by_width_and_block(b, m, want):
+    """The GPU apply sends single vectors to XLA (where the kernel is
+    slower) and blocks the kernel cannot take to XLA too."""
+    A = _abstract_bsr(1000, 27, b)
+    assert spmm.choose_apply(A, jax.ShapeDtypeStruct((1000 * b, m),
+                                                     jnp.float32)) == want
 
 
-def test_pencil_union_minv_is_mass_solve():
-    """Minv_mm on a kernel="union" pencil must solve with the MASS matrix
-    (stream b), not fall through the M-is-None identity shortcut — the
-    shortcut made Lanczos direct mode silently compute eigenvalues of K
-    instead of M^-1 K (round-2 advisor finding, high)."""
-    import scipy.sparse.linalg as spla
-    from jax.experimental.pallas import tpu as pltpu
-
-    from maxwell_tpu.solvers.operator import Pencil
-
-    cav = RectCavity2D(nx=6, ny=5)
-    pen = Pencil.from_problem(cav, kernel="union", dtype=jnp.float32)
-    rng = np.random.default_rng(0)
-    X = np.zeros((pen.n_padded, 4), np.float32)
-    X[: pen.n] = rng.standard_normal((pen.n, 4)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        Y = np.asarray(pen.Minv_mm(jnp.asarray(X)))
-    ref = spla.spsolve(cav.M.tocsc(), X[: pen.n])
-    assert np.abs(Y[: pen.n] - ref).max() > 0  # not the identity shortcut
-    np.testing.assert_allclose(Y[: pen.n], ref, rtol=5e-4, atol=5e-4)
-
-
-def test_pencil_union_wide_m_routes_to_banded(monkeypatch):
-    """An apply wider than 32 columns must route through the banded split
-    when full X overflows the VMEM budget — from_problem sizes the split
-    for max_m, not 32 (round-2 advisor finding, medium)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    import maxwell_tpu.kernels.spmm as spmm
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.solvers.operator import Pencil
-
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    # round 5: routing is governed by the LANE-PADDED budget (an
-    # (n, m<=128) X costs n*128*4 VMEM bytes regardless of m)
-    monkeypatch.setattr(spmm, "_VMEM_X_LANE_BUDGET", 512 * 1024)
-    cav = PermutedProblem(BrickCavity3D(nx=8, ny=8, nz=8))
-    pen = Pencil.from_problem(cav, kernel="union", dtype=jnp.float32)
-    assert pen.Kbanded is not None
-    m = 96
-    assert not pen._bell_fits_vmem(m)  # full kernel would refuse
-    ref = Pencil.from_problem(cav, kernel="ref", dtype=jnp.float32)
-    key = jax.random.PRNGKey(1)
-    X = jax.random.normal(key, (pen.n_padded, m), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        Yk, Ym = pen.KM_mm(X)
-    n = pen.n
-    rk = np.asarray(ref.K_mm(X[: ref.n_padded])[:n])
-    rm = np.asarray(ref.M_mm(X[: ref.n_padded])[:n])
-    np.testing.assert_allclose(np.asarray(Yk[:n]), rk, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(Ym[:n]), rm, rtol=2e-5, atol=2e-5)
-
-
-def test_bellunion_matvec():
-    """SpMV entry point on the production layout (round-2 VERDICT item 6):
-    y = A @ x for a 1-D x, both value streams."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from maxwell_tpu.kernels.spmm import bellunion_matvec_pallas
-    from maxwell_tpu.sparse.bellunion import BELLUnion
-
-    cav = RectCavity2D(nx=7, ny=6)
-    A = BELLUnion.from_csr(cav.K, block=8, dtype=jnp.float32, B=cav.M)
-    rng = np.random.default_rng(5)
-    x = np.zeros(A.n_padded, np.float32)
-    x[: cav.K.shape[0]] = rng.standard_normal(cav.K.shape[0]).astype(
-        np.float32
-    )
-    with pltpu.force_tpu_interpret_mode():
-        yk = np.asarray(bellunion_matvec_pallas(A, jnp.asarray(x)))
-        ym = np.asarray(
-            bellunion_matvec_pallas(A, jnp.asarray(x), stream="b")
+@pytest.mark.parametrize(
+    "n_brows, slots, b, x_rows, m",
+    [
+        (2_000_000, 72, 4, 8_000_000, 8),  # blocks: 2.3e9 entries
+        (1_000, 27, 4, 4_000, 2**20),  # X and Y: 4.2e9 entries
+    ],
+)
+def test_triton_int32_offset_guard(n_brows, slots, b, x_rows, m):
+    """Operands whose flat offsets pass 2^31 go to XLA on the GPU path, and
+    the kernel itself refuses them instead of wrapping its int32 offsets."""
+    A = _abstract_bsr(n_brows, slots, b)
+    X = jax.ShapeDtypeStruct((x_rows, m), jnp.float32)
+    assert "2^31" in spmm.triton_unsupported(A, x_rows, m)
+    assert spmm.choose_apply(A, X) == "ref"
+    with pytest.raises(ValueError, match="2\\^31"):
+        jax.eval_shape(
+            lambda A, X: bsr_matmat_triton(A, X, interpret=True), A, X
         )
-    n = cav.K.shape[0]
-    np.testing.assert_allclose(yk[:n], cav.K @ x[:n], rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(ym[:n], cav.M @ x[:n], rtol=1e-5, atol=1e-5)
 
 
-def test_bellpairs_banded_empty_tile():
-    """A tile with zero live slots must get a clamped (valid) window, not
-    an inverted one (round-2 advisor finding, low)."""
-    import scipy.sparse as sp
-
-    from maxwell_tpu.kernels.spmm import bellpairs_matmat_banded
-    from maxwell_tpu.sparse.bellpairs import BELLPairs
-
-    # entries confined to the first 100 rows/cols of a 256-dim matrix:
-    # the second 128-row tile has zero live pairs
-    Ac = sp.eye(100).tocoo()
-    Af = sp.coo_matrix((Ac.data, (Ac.row, Ac.col)), shape=(256, 256)).tocsr()
-    A = BELLPairs.from_csr(Af, block=8, dtype=jnp.float32)
-    # budget chosen so the empty tile lands in its OWN band (merging with
-    # tile 0 would mask the inverted window)
-    AB = A.banded(m=8, budget_bytes=130 * 4 * 8)
-    assert len(AB.bands) >= 2
-    assert all(r > 0 for r in AB.col_rows)
-    rng = np.random.default_rng(3)
-    X = jnp.asarray(rng.standard_normal((256, 8)).astype(np.float32))
-    Y = bellpairs_matmat_banded(AB, X, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(Y)[:256], Af @ np.asarray(X), rtol=1e-5, atol=1e-5
-    )
+def test_triton_offsets_fit_just_below_limit():
+    A = _abstract_bsr(1_000_000, 64, 4)  # 1.02e9 block entries
+    assert spmm.triton_unsupported(A, 4_000_000, 24) is None
 
 
-def test_bellunion_km_fused_parity():
-    """Fused (K@X, M@X) union kernel == two single-stream applies
-    (interpret mode on CPU; round 4)."""
-    import scipy.sparse as sp
-
-    from maxwell_tpu.kernels.spmm import (
-        bellunion_km_matmat_pallas,
-        bellunion_matmat_pallas,
-    )
-    from maxwell_tpu.sparse.bellunion import BELLUnion
-
-    rng = np.random.default_rng(3)
-    n = 400
-    A = sp.random(n, n, density=0.04, format="csr", random_state=7)
-    B = sp.random(n, n, density=0.03, format="csr", random_state=8)
-    U = BELLUnion.from_csr(A, block=8, B=B, chunk_lanes=256, pack=2)
-    X = jnp.asarray(rng.standard_normal((U.n_padded, 8)), jnp.float32)
-    Yk, Ym = bellunion_km_matmat_pallas(U, X, interpret=True)
-    Yk1 = bellunion_matmat_pallas(U, X, interpret=True, stream="a")
-    Ym1 = bellunion_matmat_pallas(U, X, interpret=True, stream="b")
-    np.testing.assert_array_equal(np.asarray(Yk), np.asarray(Yk1))
-    np.testing.assert_array_equal(np.asarray(Ym), np.asarray(Ym1))
-    # and against scipy
-    ref = A @ np.asarray(X[:n], np.float64)
-    err = np.abs(np.asarray(Yk)[:n] - ref).max() / np.abs(ref).max()
-    assert err < 1e-6
+@pytest.mark.parametrize("m, rows", [(1, 512), (8, 512), (24, 128), (96, 64)])
+def test_tile_rows(m, rows):
+    mp = int(2 ** np.ceil(np.log2(m)))
+    P = spmm._tile_rows(4, mp)
+    assert P == rows and P % 4 == 0 and P & (P - 1) == 0
 
 
-def test_bellunion_b3_matches_scipy():
-    """bf16x3 production kernel (round 5): three DEFAULT-precision MXU
-    passes over build-time-split bf16 value streams must reproduce the
-    scipy product to the documented ~1e-5 apply budget (the f32
-    production solves stall-cut above this floor and chain into
-    dw/f64 refinement)."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    from maxwell_tpu.kernels.spmm import bellunion_matmat_pallas
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.bellunion import BELLUnion
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
-    Kcsr = cav.K.tocsr()
-    A = BELLUnion.from_csr(Kcsr, block=8, dtype=jnp.float32).bf16x3()
-    rng = np.random.default_rng(0)
-    X = jnp.asarray(
-        rng.standard_normal((A.n_cols_padded, 8)), jnp.float32
-    )
-    Y = bellunion_matmat_pallas(A, X, interpret=True, precision="b3")
-    Yref = Kcsr @ np.asarray(X[: Kcsr.shape[1]], np.float64)
-    err = np.abs(np.asarray(Y)[: Kcsr.shape[0]] - Yref).max()
-    rel = err / np.abs(Yref).max()
-    assert rel < 2e-5, f"b3 apply error {rel:.2e}"
-    # the (hi, lo) pair carries ~16 mantissa bits (2 x bf16-8): the
-    # reconstruction error against the f32 values is bounded by ~2^-17
-    recon = np.asarray(A.vals_h, np.float32).astype(np.float64) + \
-        np.asarray(A.vals_l, np.float32).astype(np.float64)
-    v = np.asarray(A.vals, np.float64)
-    scale = np.abs(v).max()
-    assert np.abs(recon - v).max() <= 1e-5 * scale
-
-
-def test_bellunion_km_b3_matches_single_stream():
-    """Fused-KM bf16x3 == two single-stream b3 applies (same gathered X,
-    same split streams)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from maxwell_tpu.kernels.spmm import (
-        bellunion_km_matmat_pallas,
-        bellunion_matmat_pallas,
-    )
-    from maxwell_tpu.problems import BrickCavity3D
-    from maxwell_tpu.sparse.bellunion import BELLUnion
-    from maxwell_tpu.sparse.reorder import PermutedProblem
-
-    cav = PermutedProblem(BrickCavity3D(nx=6, ny=6, nz=6))
-    A = BELLUnion.from_csr(
-        cav.K.tocsr(), block=8, dtype=jnp.float32, B=cav.M
-    ).bf16x3()
-    rng = np.random.default_rng(1)
-    X = jnp.asarray(
-        rng.standard_normal((A.n_cols_padded, 4)), jnp.float32
-    )
-    Yk, Ym = bellunion_km_matmat_pallas(
-        A, X, interpret=True, precision="b3"
-    )
-    Yk1 = bellunion_matmat_pallas(
-        A, X, interpret=True, precision="b3", stream="a"
-    )
-    Ym1 = bellunion_matmat_pallas(
-        A, X, interpret=True, precision="b3", stream="b"
-    )
-    np.testing.assert_allclose(np.asarray(Yk), np.asarray(Yk1), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(Ym), np.asarray(Ym1), atol=1e-6)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_triton_compiled_on_gpu(gpu_device, brick, dtype):
+    """The kernel as compiled for the card, against scipy f64."""
+    K = brick["rcm"]
+    n = K.shape[0]
+    A = BSRMatrix.from_csr(K, block=4, align_slots=4, dtype=dtype)
+    X = np.zeros((A.n_padded, 8))
+    X[:n] = np.random.default_rng(0).standard_normal((n, 8))
+    Y = bsr_matmat_triton(A, jnp.asarray(X, dtype))
+    assert list(Y.devices())[0].platform == "gpu"
+    _check(Y, K, X, n, dtype)
